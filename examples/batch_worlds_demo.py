@@ -7,9 +7,9 @@ shards the same axis over the mesh ('world' in parallel/sharded).
 """
 import numpy as np
 
-from gpu_voxels_tpu.constants import float_to_probability
-from gpu_voxels_tpu.maps.voxelmap import ProbVoxelMap
-from gpu_voxels_tpu.ops.insert import linear_index, map_to_voxels
+from gpu_voxels_jax.constants import float_to_probability
+from gpu_voxels_jax.maps.voxelmap import ProbVoxelMap
+from gpu_voxels_jax.ops.insert import linear_index, map_to_voxels
 
 DIMS = (64, 64, 64)
 W = 16  # worlds

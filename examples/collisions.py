@@ -2,8 +2,8 @@
 across map-type combinations."""
 import numpy as np
 
-from gpu_voxels_tpu.api import GpuVoxels
-from gpu_voxels_tpu.constants import BitVoxelMeaning, MapType
+from gpu_voxels_jax.api import GpuVoxels
+from gpu_voxels_jax.constants import BitVoxelMeaning, MapType
 
 
 def main():
@@ -24,7 +24,7 @@ def main():
     print("bit  x prob:", int(gvl.get_map("bit_a").collide_with(gvl.get_map("prob_b"), 0.7)))
     # the swept-volume types collider only inspects SV bits (4..253), so
     # insert the boxes again with SV meanings for the types check
-    from gpu_voxels_tpu.constants import SV_START
+    from gpu_voxels_jax.constants import SV_START
 
     gvl.insert_box_into_map((0.5, 0.5, 0.5), (1.0, 1.0, 1.0), "bit_a", SV_START + 1, 1)
     gvl.insert_box_into_map((0.8, 0.8, 0.8), (1.3, 1.3, 1.3), "bit_b", SV_START + 2, 1)

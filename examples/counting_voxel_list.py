@@ -2,7 +2,7 @@
 voxel list, then collision against a bit-vector list."""
 import numpy as np
 
-from gpu_voxels_tpu.maps.voxellist import bit_vector_voxel_list, counting_voxel_list
+from gpu_voxels_jax.maps.voxellist import bit_vector_voxel_list, counting_voxel_list
 
 
 def main():

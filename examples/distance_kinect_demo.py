@@ -3,9 +3,9 @@ probabilistic map, whose occupied voxels become EDT obstacles; proximity
 queries then report clearance (e.g. for speed scaling a robot)."""
 import numpy as np
 
-from gpu_voxels_tpu.maps.distance_map import DistanceVoxelMap
-from gpu_voxels_tpu.maps.voxelmap import ProbVoxelMap
-from gpu_voxels_tpu.sensors import Sensor, SyntheticDepthSource
+from gpu_voxels_jax.maps.distance_map import DistanceVoxelMap
+from gpu_voxels_jax.maps.voxelmap import ProbVoxelMap
+from gpu_voxels_jax.sensors import Sensor, SyntheticDepthSource
 
 
 def main(frames: int = 3):

@@ -4,8 +4,8 @@ import time
 
 import numpy as np
 
-from gpu_voxels_tpu.maps.distance_map import DistanceVoxelMap
-from gpu_voxels_tpu.utils.perfmon import PerformanceMonitor
+from gpu_voxels_jax.maps.distance_map import DistanceVoxelMap
+from gpu_voxels_jax.utils.perfmon import PerformanceMonitor
 
 
 def main(dim: int = 64, n_obstacles: int = 100):

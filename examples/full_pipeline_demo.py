@@ -11,16 +11,16 @@ from dataclasses import replace as drep
 
 import numpy as np
 
-from gpu_voxels_tpu.constants import SV_START
-from gpu_voxels_tpu.maps.distance_map import DistanceVoxelMap
-from gpu_voxels_tpu.maps.hierarchical import HierarchicalProbMap
-from gpu_voxels_tpu.maps.voxellist import counting_voxel_list
-from gpu_voxels_tpu.maps.voxelmap import BitVectorVoxelMap, ProbVoxelMap
-from gpu_voxels_tpu.planning import MotionValidator
-from gpu_voxels_tpu.planning.validity import HierarchicalValidityChecker
-from gpu_voxels_tpu.robot.presets import ur_robot
-from gpu_voxels_tpu.robot.swept_volume import insert_swept_volume_batched
-from gpu_voxels_tpu.sensors import Sensor
+from gpu_voxels_jax.constants import SV_START
+from gpu_voxels_jax.maps.distance_map import DistanceVoxelMap
+from gpu_voxels_jax.maps.hierarchical import HierarchicalProbMap
+from gpu_voxels_jax.maps.voxellist import counting_voxel_list
+from gpu_voxels_jax.maps.voxelmap import BitVectorVoxelMap, ProbVoxelMap
+from gpu_voxels_jax.planning import MotionValidator
+from gpu_voxels_jax.planning.validity import HierarchicalValidityChecker
+from gpu_voxels_jax.robot.presets import ur_robot
+from gpu_voxels_jax.robot.swept_volume import insert_swept_volume_batched
+from gpu_voxels_jax.sensors import Sensor
 
 DIMS = (128, 128, 64)
 SIDE = 0.04  # 4 cm voxels over a ~5 x 5 x 2.5 m cell
@@ -42,15 +42,15 @@ def main():
         cy=24.0,
     )
     # wall at ~1.9 m in front of the camera (within the 2.56 m z extent)
-    from gpu_voxels_tpu.sensors import ReplayDepthSource
+    from gpu_voxels_jax.sensors import ReplayDepthSource
 
     frame = np.full((48, 64), 1.9, np.float32)
     frame += 0.05 * np.sin(np.arange(64))[None, :].astype(np.float32)
     source = ReplayDepthSource(np.stack([frame] * 3))
     env = ProbVoxelMap.create(DIMS, SIDE)
     for _ in range(3):  # a few scans push hits past the occupancy threshold
-        # carve_pool=8: the Pallas pooled conservative carve (75 Hz live-
-        # sensor configuration); 1 would be the exact reference carve
+        # carve_pool=8: the min-pooled conservative carve; 1 would be the
+        # exact reference carve
         env = env.insert_depth_image(source.get_frame(), sensor, carve_pool=8)
     occupied = int(np.asarray(env.occupied_mask(0.6)).sum())
     print(f"sense: {occupied} occupied voxels after 3 scans")
@@ -109,7 +109,7 @@ def main():
     import tempfile
     from pathlib import Path
 
-    from gpu_voxels_tpu.vis.export import write_html, write_ply
+    from gpu_voxels_jax.vis.export import write_html, write_ply
 
     out = Path(tempfile.mkdtemp())
     n_cubes = write_ply(out / "scene.ply", env, 0.6)

@@ -1,8 +1,8 @@
 """Port of examples/HeightmapLoader.cpp: terrain heightmap -> voxel map."""
 import numpy as np
 
-from gpu_voxels_tpu.geometry.heightmap import heightmap_to_point_cloud
-from gpu_voxels_tpu.maps.voxelmap import ProbVoxelMap
+from gpu_voxels_jax.geometry.heightmap import heightmap_to_point_cloud
+from gpu_voxels_jax.maps.voxelmap import ProbVoxelMap
 
 
 def main():

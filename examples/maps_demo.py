@@ -2,9 +2,9 @@
 report occupancy/collisions per representation."""
 import numpy as np
 
-from gpu_voxels_tpu.api import GpuVoxels
-from gpu_voxels_tpu.constants import BitVoxelMeaning, MapType
-from gpu_voxels_tpu.geometry import generation
+from gpu_voxels_jax.api import GpuVoxels
+from gpu_voxels_jax.constants import BitVoxelMeaning, MapType
+from gpu_voxels_jax.geometry import generation
 
 
 def main():

@@ -4,10 +4,10 @@ import time
 
 import numpy as np
 
-from gpu_voxels_tpu.maps.hierarchical import HierarchicalProbMap
-from gpu_voxels_tpu.maps.voxellist import bit_vector_morton_voxel_list
-from gpu_voxels_tpu.maps.voxelmap import ProbVoxelMap
-from gpu_voxels_tpu.utils.perfmon import PerformanceMonitor
+from gpu_voxels_jax.maps.hierarchical import HierarchicalProbMap
+from gpu_voxels_jax.maps.voxellist import bit_vector_morton_voxel_list
+from gpu_voxels_jax.maps.voxelmap import ProbVoxelMap
+from gpu_voxels_jax.utils.perfmon import PerformanceMonitor
 
 
 def main(dim: int = 128, n_points: int = 50_000):

@@ -8,7 +8,7 @@ scene — the animated box is present but commented out
 (gvl_ompl_planner_helper.cpp:82; opt in with moving_box=True here) —
 visualizing each solution as a swept volume (gvl_ompl_planner.cpp:56-160).
 Here the planner is the library's own RRT-Connect
-(gpu_voxels_tpu.planning.RRTConnect): sampling on host, every motion segment
+(gpu_voxels_jax.planning.RRTConnect): sampling on host, every motion segment
 validated in one batched device program.
 
 Facade layout mirrors gvl_ompl_planner_helper.cpp:54-61: myRobotMap /
@@ -19,16 +19,16 @@ from dataclasses import replace
 
 import numpy as np
 
-from gpu_voxels_tpu.api import GpuVoxels
-from gpu_voxels_tpu.constants import SV_START, BitVoxelMeaning, MapType
-from gpu_voxels_tpu.planning import (
+from gpu_voxels_jax.api import GpuVoxels
+from gpu_voxels_jax.constants import SV_START, BitVoxelMeaning, MapType
+from gpu_voxels_jax.planning import (
     GvlValidityChecker,
     JointSpace,
     MotionValidator,
     PathSimplifier,
     RRTConnect,
 )
-from gpu_voxels_tpu.robot.presets import ur_robot
+from gpu_voxels_jax.robot.presets import ur_robot
 
 BASE = np.array([1.5, 1.5, 0.5], np.float32)  # robot pedestal in the 3x3x2 m world
 

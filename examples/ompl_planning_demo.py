@@ -10,11 +10,11 @@ from dataclasses import replace
 
 import numpy as np
 
-from gpu_voxels_tpu.geometry import generation
-from gpu_voxels_tpu.geometry.pointcloud import MetaPointCloud
-from gpu_voxels_tpu.maps.voxelmap import ProbVoxelMap
-from gpu_voxels_tpu.planning import GvlValidityChecker, MotionValidator
-from gpu_voxels_tpu.robot.dh import DHParameters, KinematicChain
+from gpu_voxels_jax.geometry import generation
+from gpu_voxels_jax.geometry.pointcloud import MetaPointCloud
+from gpu_voxels_jax.maps.voxelmap import ProbVoxelMap
+from gpu_voxels_jax.planning import GvlValidityChecker, MotionValidator
+from gpu_voxels_jax.robot.dh import DHParameters, KinematicChain
 
 BASE = np.array([4.0, 4.0, 4.0], np.float32)
 

@@ -1,8 +1,8 @@
 """Port of examples/PrimitiveArrayTest.cpp: animated primitive overlays."""
 import numpy as np
 
-from gpu_voxels_tpu.api import GpuVoxels
-from gpu_voxels_tpu.primitive_array import PrimitiveType
+from gpu_voxels_jax.api import GpuVoxels
+from gpu_voxels_jax.primitive_array import PrimitiveType
 
 
 def main():

@@ -17,10 +17,10 @@ from pathlib import Path
 import jax
 import numpy as np
 
-from gpu_voxels_tpu.maps.paged import PagedHierarchicalMap
-from gpu_voxels_tpu.maps.voxellist import VoxelList
-from gpu_voxels_tpu.parallel import ShardedPagedWorld
-from gpu_voxels_tpu.sensors import Sensor
+from gpu_voxels_jax.maps.paged import PagedHierarchicalMap
+from gpu_voxels_jax.maps.voxellist import VoxelList
+from gpu_voxels_jax.parallel import ShardedPagedWorld
+from gpu_voxels_jax.sensors import Sensor
 
 
 def main():

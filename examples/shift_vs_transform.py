@@ -2,8 +2,8 @@
 offset at collide time vs transforming the cloud before insertion."""
 import numpy as np
 
-from gpu_voxels_tpu.geometry import generation, transforms
-from gpu_voxels_tpu.maps.voxelmap import ProbVoxelMap
+from gpu_voxels_jax.geometry import generation, transforms
+from gpu_voxels_jax.maps.voxelmap import ProbVoxelMap
 
 DIMS = (64, 64, 64)
 

@@ -27,11 +27,11 @@ import tempfile
 
 import numpy as np
 
-from gpu_voxels_tpu.maps.voxelmap import BitVectorVoxelMap
-from gpu_voxels_tpu.robot.fitter import deconflict_slot, fit_orderings
-from gpu_voxels_tpu.robot.presets import ur_robot
-from gpu_voxels_tpu.robot.swept_volume import insert_swept_volume_batched
-from gpu_voxels_tpu.robot.trajectory import load_trajectories
+from gpu_voxels_jax.maps.voxelmap import BitVectorVoxelMap
+from gpu_voxels_jax.robot.fitter import deconflict_slot, fit_orderings
+from gpu_voxels_jax.robot.presets import ur_robot
+from gpu_voxels_jax.robot.swept_volume import insert_swept_volume_batched
+from gpu_voxels_jax.robot.trajectory import load_trajectories
 
 # two UR10s facing each other across a shared band of workspace
 BASES = {
@@ -114,7 +114,7 @@ def render_swept_volumes(robot, trajs, dims, side, steps):
 
 def fit(robots, all_solutions=True, verbose=True):
     """Fitter::fitInternal ordering search — the library core
-    (gpu_voxels_tpu.robot.fitter.fit_orderings) plus the example's printing."""
+    (gpu_voxels_jax.robot.fitter.fit_orderings) plus the example's printing."""
     solutions = fit_orderings(robots, all_solutions=all_solutions)
     if verbose:
         for sol in solutions:
@@ -157,7 +157,7 @@ def main(dims=(256, 256, 256), side=0.015, steps=100, window=2, verbose=True):
     assert len(solutions) == 2, solutions  # the two center/home interleavings
 
     # time-in-bits refinement: per-slot start-delay windows
-    # (gpu_voxels_tpu.robot.fitter.deconflict_slot — the question the
+    # (gpu_voxels_jax.robot.fitter.deconflict_slot — the question the
     # boolean reference fitter cannot ask)
     conflicts0 = int(a_center.collide_with_bitcheck(b_center, margin=window))
     assert conflicts0 > 0, "concurrent starts must conflict in time"

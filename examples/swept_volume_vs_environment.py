@@ -3,11 +3,11 @@ as a swept volume (per-step SV bits), then collide a moving obstacle against
 it with a windowed swept-volume collider."""
 import numpy as np
 
-from gpu_voxels_tpu.constants import SV_START
-from gpu_voxels_tpu.geometry.pointcloud import MetaPointCloud
-from gpu_voxels_tpu.maps.voxelmap import BitVectorVoxelMap
-from gpu_voxels_tpu.robot.dh import DHParameters, KinematicChain
-from gpu_voxels_tpu.robot.swept_volume import insert_swept_volume
+from gpu_voxels_jax.constants import SV_START
+from gpu_voxels_jax.geometry.pointcloud import MetaPointCloud
+from gpu_voxels_jax.maps.voxelmap import BitVectorVoxelMap
+from gpu_voxels_jax.robot.dh import DHParameters, KinematicChain
+from gpu_voxels_jax.robot.swept_volume import insert_swept_volume
 
 
 def main():

@@ -11,10 +11,10 @@ rotation, so all three transforms place the cloud identically.
 """
 import numpy as np
 
-from gpu_voxels_tpu.api import GpuVoxels
-from gpu_voxels_tpu.constants import BitVoxelMeaning, MapType
-from gpu_voxels_tpu.geometry import transforms
-from gpu_voxels_tpu.utils.tf_helper import TfHelper
+from gpu_voxels_jax.api import GpuVoxels
+from gpu_voxels_jax.constants import BitVoxelMeaning, MapType
+from gpu_voxels_jax.geometry import transforms
+from gpu_voxels_jax.utils.tf_helper import TfHelper
 
 
 def coordinate_system_cloud(length=0.1, step=0.005):

@@ -8,8 +8,8 @@ from pathlib import Path
 
 import numpy as np
 
-from gpu_voxels_tpu.api import GpuVoxels
-from gpu_voxels_tpu.constants import BitVoxelMeaning, MapType
+from gpu_voxels_jax.api import GpuVoxels
+from gpu_voxels_jax.constants import BitVoxelMeaning, MapType
 
 DEMO_URDF_PATH = Path(__file__).resolve().parent / "models" / "pan_tilt.urdf"
 

@@ -1,64 +1,51 @@
-"""gpu_voxels_tpu — a TPU-native voxel-world collision engine.
+"""Former import name of `gpu_voxels_jax`, kept so that existing code still
+imports.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of the CUDA
-GPU-Voxels library (reference: Changliu52/gpu-voxels): volumetric maps
-(probabilistic, 256-bit deterministic, distance, counting; dense, sparse-list
-and hierarchical), point-cloud/robot insertion, collision detection, swept
-volumes, sensor fusion, Euclidean distance transforms, and a high-level scene
-facade — all formulated as fused, jittable array programs that keep the whole
-sense -> insert -> collide loop on-device.
+Importing this package warns once and returns `gpu_voxels_jax` itself; a
+module under it (`<this package>.maps.voxelmap`, ...) is the module of
+`gpu_voxels_jax` with the same path. Both names therefore share one module
+object per file: classes, isinstance checks and compiled-function caches are
+the same whichever name imported them.
 """
-from .constants import (
-    BIT_VECTOR_LENGTH,
-    MAX_PROBABILITY,
-    MIN_PROBABILITY,
-    UNKNOWN_PROBABILITY,
-    BitVoxelMeaning,
-    MapType,
-    float_to_probability,
+from __future__ import annotations
+
+import importlib
+import importlib.abc
+import importlib.util
+import sys
+import warnings
+
+import gpu_voxels_jax
+
+_FORMER = __name__
+_TARGET = gpu_voxels_jax.__name__
+
+
+class _AliasFinder(importlib.abc.MetaPathFinder, importlib.abc.Loader):
+    """Resolves `<former name>.x.y` to the module `gpu_voxels_jax.x.y`."""
+
+    def find_spec(self, fullname, path=None, target=None):
+        if not fullname.startswith(_FORMER + "."):
+            return None
+        if importlib.util.find_spec(_TARGET + fullname[len(_FORMER):]) is None:
+            return None
+        return importlib.util.spec_from_loader(fullname, self)
+
+    def create_module(self, spec):
+        module = importlib.import_module(_TARGET + spec.name[len(_FORMER):])
+        spec.loader_state = module.__spec__
+        return module
+
+    def exec_module(self, module):
+        # the import system stamps the alias's spec on the shared module;
+        # give the module its own back
+        module.__spec__ = module.__spec__.loader_state
+
+
+warnings.warn(
+    f"the package {_FORMER!r} is now {_TARGET!r}; import {_TARGET!r} instead",
+    DeprecationWarning,
+    stacklevel=2,
 )
-
-__version__ = "0.3.0"
-
-# lazily-resolved top-level surface: `from gpu_voxels_tpu import GpuVoxels`
-# works without paying every submodule's import cost up front
-_LAZY = {
-    "GpuVoxels": "gpu_voxels_tpu.api",
-    "ProbVoxelMap": "gpu_voxels_tpu.maps.voxelmap",
-    "BitVectorVoxelMap": "gpu_voxels_tpu.maps.voxelmap",
-    "CountingVoxelMap": "gpu_voxels_tpu.maps.voxelmap",
-    "DistanceVoxelMap": "gpu_voxels_tpu.maps.distance_map",
-    "VoxelList": "gpu_voxels_tpu.maps.voxellist",
-    "HierarchicalProbMap": "gpu_voxels_tpu.maps.hierarchical",
-    "HierarchicalBitMap": "gpu_voxels_tpu.maps.hierarchical",
-    "PagedHierarchicalMap": "gpu_voxels_tpu.maps.paged",
-    "MetaPointCloud": "gpu_voxels_tpu.geometry.pointcloud",
-    "PointCloud": "gpu_voxels_tpu.geometry.pointcloud",
-    "Sensor": "gpu_voxels_tpu.sensors",
-}
-
-
-def __getattr__(name):
-    mod = _LAZY.get(name)
-    if mod is None:
-        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-    import importlib
-
-    return getattr(importlib.import_module(mod), name)
-
-
-def __dir__():
-    return sorted(list(globals()) + list(_LAZY))
-
-
-__all__ = [
-    "BIT_VECTOR_LENGTH",
-    "BitVoxelMeaning",
-    "MapType",
-    "MAX_PROBABILITY",
-    "MIN_PROBABILITY",
-    "UNKNOWN_PROBABILITY",
-    "float_to_probability",
-    "__version__",
-    *sorted(_LAZY),
-]
+sys.meta_path.insert(0, _AliasFinder())
+sys.modules[_FORMER] = gpu_voxels_jax

@@ -1,4 +1,4 @@
-// Native data-loader fast paths for gpu_voxels_tpu.
+// Native data-loader fast paths for gpu_voxels_jax.
 //
 // The reference implements its file handling, geometry parsing and runtime
 // glue in C++ (helpers/*FileReader.cpp, icl_core); this library is the

@@ -4,16 +4,16 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from gpu_voxels_tpu.api import GpuVoxels
-from gpu_voxels_tpu.constants import BitVoxelMeaning, MapType
-from gpu_voxels_tpu.geometry.pointcloud import MetaPointCloud
-from gpu_voxels_tpu.maps.voxelmap import BitVectorVoxelMap, ProbVoxelMap
-from gpu_voxels_tpu.maps.voxellist import bit_vector_voxel_list
-from gpu_voxels_tpu.maps.distance_map import DistanceVoxelMap
-from gpu_voxels_tpu.primitive_array import PrimitiveType
-from gpu_voxels_tpu.utils import io as map_io
-from gpu_voxels_tpu.utils.config import ConfigManager
-from gpu_voxels_tpu.utils.perfmon import PerformanceMonitor
+from gpu_voxels_jax.api import GpuVoxels
+from gpu_voxels_jax.constants import BitVoxelMeaning, MapType
+from gpu_voxels_jax.geometry.pointcloud import MetaPointCloud
+from gpu_voxels_jax.maps.voxelmap import BitVectorVoxelMap, ProbVoxelMap
+from gpu_voxels_jax.maps.voxellist import bit_vector_voxel_list
+from gpu_voxels_jax.maps.distance_map import DistanceVoxelMap
+from gpu_voxels_jax.primitive_array import PrimitiveType
+from gpu_voxels_jax.utils import io as map_io
+from gpu_voxels_jax.utils.config import ConfigManager
+from gpu_voxels_jax.utils.perfmon import PerformanceMonitor
 
 
 def fresh_gvl():
@@ -38,7 +38,7 @@ def test_linkage_scene_through_facade():
     n = int(gvl.get_map("myFirstMap").collide_with(gvl.get_map("mySecondMap")))
     # overlap region [0.4,0.6]^3 at 0.01 voxels -> 20^3 (float32 point
     # accumulation ends the second box just below 0.6); verified against an
-    # independent numpy voxelization on TPU earlier
+    # independent numpy voxelization
     assert n == 8000
 
 
@@ -51,7 +51,7 @@ def test_facade_map_factory_all_types():
 
 def test_facade_robot_and_primitives(tmp_path):
     gvl = fresh_gvl()
-    from gpu_voxels_tpu.robot.dh import DHParameters, KinematicChain
+    from gpu_voxels_jax.robot.dh import DHParameters, KinematicChain
 
     clouds = MetaPointCloud.from_clouds([[[0.25, 0.0, 0.0]]], names=("link1",))
     gvl.add_robot_dh("arm", ["link1"], [DHParameters(0, 0, 0.5, 0)], clouds)
@@ -146,8 +146,8 @@ def test_config_manager(tmp_path):
 
 
 def test_vis_extract_and_export(tmp_path):
-    from gpu_voxels_tpu.vis import extract_cubes, occupied_coords
-    from gpu_voxels_tpu.vis.export import write_html, write_ply
+    from gpu_voxels_jax.vis import extract_cubes, occupied_coords
+    from gpu_voxels_jax.vis.export import write_html, write_ply
 
     m = BitVectorVoxelMap.create((8, 8, 8), 0.5).insert_point_cloud(
         np.array([[1.25, 1.25, 1.25]], np.float32), 50
@@ -164,7 +164,7 @@ def test_vis_extract_and_export(tmp_path):
 
 
 def test_vis_provider_change_detection(tmp_path):
-    from gpu_voxels_tpu.vis.provider import VisProvider
+    from gpu_voxels_jax.vis.provider import VisProvider
 
     m = ProbVoxelMap.create((8, 8, 8)).insert_point_cloud(np.array([[1.5, 1.5, 1.5]], np.float32))
     vp = VisProvider("env", tmp_path)
@@ -174,8 +174,8 @@ def test_vis_provider_change_detection(tmp_path):
 
 
 def test_planning_validity():
-    from gpu_voxels_tpu.planning import GvlValidityChecker, MotionValidator
-    from gpu_voxels_tpu.robot.dh import DHParameters, KinematicChain
+    from gpu_voxels_jax.planning import GvlValidityChecker, MotionValidator
+    from gpu_voxels_jax.robot.dh import DHParameters, KinematicChain
 
     params = [DHParameters(0, 0, 1.0, 0)]
     clouds = MetaPointCloud.from_clouds([[[1.0, 0.0, 0.0]]], names=("l1",))
@@ -197,7 +197,7 @@ def test_planning_validity():
 
 
 def test_hierarchical_disk_roundtrip(tmp_path):
-    from gpu_voxels_tpu.maps.hierarchical import HierarchicalBitMap, HierarchicalProbMap
+    from gpu_voxels_jax.maps.hierarchical import HierarchicalBitMap, HierarchicalProbMap
 
     pts = np.array([[2.5, 3.5, 4.5]], np.float32)
     for cls in (HierarchicalProbMap, HierarchicalBitMap):
@@ -218,14 +218,14 @@ def test_hierarchical_disk_roundtrip(tmp_path):
 def test_hierarchical_ascii_roundtrip(tmp_path):
     """NTree::serialize's ascii mode (NTree.hpp:3283-3400) equivalent: the
     dense octree tier roundtrips through the human-readable format."""
-    from gpu_voxels_tpu.maps.hierarchical import HierarchicalBitMap, HierarchicalProbMap
+    from gpu_voxels_jax.maps.hierarchical import HierarchicalBitMap, HierarchicalProbMap
 
     pts = np.array([[2.5, 3.5, 4.5], [9.5, 1.5, 0.5]], np.float32)
     for cls in (HierarchicalProbMap, HierarchicalBitMap):
         h = cls.create((16, 16, 16), side_length=0.3).insert_point_cloud(pts / 3)
         f = tmp_path / "h.txt"
         map_io.write_hierarchical_map(h, f, ascii=True)
-        assert f.read_bytes().startswith(b"GPU_VOXELS_TPU_OCTREE ascii")
+        assert f.read_bytes().startswith(b"GPU_VOXELS_JAX_OCTREE ascii")
         back = map_io.read_hierarchical_map(f)
         assert type(back) is type(h)
         assert back.dims == h.dims and back.levels == h.levels
@@ -239,11 +239,67 @@ def test_hierarchical_ascii_roundtrip(tmp_path):
             )
 
 
+@pytest.mark.parametrize("kind", ["hier_prob", "hier_bit", "paged_bit"])
+def test_ascii_octree_with_former_header_loads(tmp_path, kind):
+    """Ascii octree files written under the package's former name carry
+    another first line over the same body; read_hierarchical_map still
+    loads them."""
+    from gpu_voxels_jax.maps.hierarchical import HierarchicalBitMap, HierarchicalProbMap
+    from gpu_voxels_jax.maps.paged import PagedHierarchicalMap
+
+    pts = np.array([[2.5, 3.5, 4.5], [9.5, 1.5, 0.5]], np.float32) / 3
+    f = tmp_path / "former.txt"
+    if kind == "paged_bit":
+        m = PagedHierarchicalMap((64, 64, 64), 0.3)
+        m.insert_point_cloud(pts)
+        map_io.write_paged_map(m, f, ascii=True)
+    else:
+        cls = HierarchicalProbMap if kind == "hier_prob" else HierarchicalBitMap
+        m = cls.create((16, 16, 16), side_length=0.3).insert_point_cloud(pts)
+        map_io.write_hierarchical_map(m, f, ascii=True)
+    raw = f.read_bytes()
+    assert raw.startswith(map_io._ASCII_MAGIC + b"\n")
+    f.write_bytes(map_io._FORMER_ASCII_MAGIC + raw[len(map_io._ASCII_MAGIC):])
+    back = map_io.read_hierarchical_map(f)
+    assert type(back) is type(m) and back.dims == m.dims
+    if kind == "paged_bit":
+        assert back.n_tiles() == m.n_tiles() > 0
+        np.testing.assert_array_equal(
+            np.asarray(back.pool[: back.n_tiles()]), np.asarray(m.pool[: m.n_tiles()])
+        )
+    else:
+        for a, b in zip(back.pyramid, m.pyramid):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_former_package_name_is_an_alias(monkeypatch):
+    """The former import name returns gpu_voxels_jax's own module objects,
+    after a DeprecationWarning."""
+    import importlib
+    import sys
+
+    import gpu_voxels_jax
+    from gpu_voxels_jax.ops import collide
+
+    former = "gpu_voxels_tpu"
+    for name in [n for n in sys.modules if n.split(".")[0] == former]:
+        monkeypatch.delitem(sys.modules, name)
+    with pytest.warns(DeprecationWarning, match="gpu_voxels_jax"):
+        pkg = importlib.import_module(former)
+    assert pkg is gpu_voxels_jax
+    assert importlib.import_module(former + ".ops.collide") is collide
+    assert collide.__spec__.name == "gpu_voxels_jax.ops.collide"
+    old = importlib.import_module(former + ".maps.voxelmap")
+    assert old.ProbVoxelMap is ProbVoxelMap
+    with pytest.raises(ModuleNotFoundError):
+        importlib.import_module(former + ".no_such_module")
+
+
 def test_hierarchical_validity_checker():
-    from gpu_voxels_tpu.maps.hierarchical import HierarchicalProbMap
-    from gpu_voxels_tpu.planning import MotionValidator
-    from gpu_voxels_tpu.planning.validity import HierarchicalValidityChecker
-    from gpu_voxels_tpu.robot.dh import DHParameters, KinematicChain
+    from gpu_voxels_jax.maps.hierarchical import HierarchicalProbMap
+    from gpu_voxels_jax.planning import MotionValidator
+    from gpu_voxels_jax.planning.validity import HierarchicalValidityChecker
+    from gpu_voxels_jax.robot.dh import DHParameters, KinematicChain
 
     params = [DHParameters(0, 0, 0.0, 0), DHParameters(0, 0, 1.0, 0), DHParameters(0, 0, 0.0, 0)]
     clouds = MetaPointCloud.from_clouds(
@@ -291,7 +347,7 @@ def test_camelcase_compat_aliases():
         np.array([[1.5, 1.5, 1.5]], np.float32)
     )
     assert bool(m.collisionCheck(m, 0.5))
-    from gpu_voxels_tpu.maps.distance_map import DistanceVoxelMap
+    from gpu_voxels_jax.maps.distance_map import DistanceVoxelMap
 
     d = DistanceVoxelMap.create((8, 8, 8)).insertPointCloud(
         np.array([[1.5, 1.5, 1.5]], np.float32)
@@ -309,23 +365,23 @@ def test_compat_alias_tables_fully_install():
     Each (camel, snake) row must have >=1 class in its application set
     carrying the snake method, and every such class must expose the camel
     spelling too."""
-    import gpu_voxels_tpu.api  # triggers compat.install()
-    from gpu_voxels_tpu import compat
-    from gpu_voxels_tpu.api import GpuVoxels
-    from gpu_voxels_tpu.maps.distance_map import DistanceVoxelMap
-    from gpu_voxels_tpu.maps.hierarchical import (
+    import gpu_voxels_jax.api  # triggers compat.install()
+    from gpu_voxels_jax import compat
+    from gpu_voxels_jax.api import GpuVoxels
+    from gpu_voxels_jax.maps.distance_map import DistanceVoxelMap
+    from gpu_voxels_jax.maps.hierarchical import (
         HierarchicalBitMap,
         HierarchicalProbMap,
     )
-    from gpu_voxels_tpu.maps.paged import PagedHierarchicalMap
-    from gpu_voxels_tpu.maps.voxellist import VoxelList
-    from gpu_voxels_tpu.maps.voxelmap import (
+    from gpu_voxels_jax.maps.paged import PagedHierarchicalMap
+    from gpu_voxels_jax.maps.voxellist import VoxelList
+    from gpu_voxels_jax.maps.voxelmap import (
         BitVectorVoxelMap,
         CountingVoxelMap,
         ProbVoxelMap,
     )
 
-    from gpu_voxels_tpu.parallel.paged_world import ShardedPagedWorld
+    from gpu_voxels_jax.parallel.paged_world import ShardedPagedWorld
 
     map_classes = (
         ProbVoxelMap, BitVectorVoxelMap, CountingVoxelMap,
@@ -349,7 +405,7 @@ def test_compat_alias_tables_fully_install():
 def test_morton_voxel_list_disk_roundtrip(tmp_path):
     """Morton lists persist 64-bit ids (the reference's MortonVoxelList id
     type); membership must survive a disk round trip, incl. coords >= 1024."""
-    from gpu_voxels_tpu.maps.voxellist import bit_vector_morton_voxel_list
+    from gpu_voxels_jax.maps.voxellist import bit_vector_morton_voxel_list
 
     pts = np.array([[2000.5, 1500.5, 1030.5], [3.5, 4.5, 5.5]], np.float32)
     lst = bit_vector_morton_voxel_list((4096, 4096, 4096)).insert_point_cloud(pts, 50)
@@ -366,7 +422,7 @@ def test_morton_voxel_list_disk_roundtrip(tmp_path):
 def test_vis_config_xml_roundtrip(tmp_path):
     """VisConfig = the XMLInterpreter equivalent: per-meaning colors and
     visibility, camera presets, slicing (gpu_visualization/XMLInterpreter.*)."""
-    from gpu_voxels_tpu.vis.config import VisConfig
+    from gpu_voxels_jax.vis.config import VisConfig
 
     xml = tmp_path / "vis.xml"
     xml.write_text(
@@ -388,7 +444,7 @@ def test_vis_config_xml_roundtrip(tmp_path):
     assert d["meaning_colors"]["10"] == [255, 0, 0]
     assert d["slice"]["axis"] == "z" and d["slice"]["max"] == 16.0
     # the served page consumes these fields
-    from gpu_voxels_tpu.vis import serve
+    from gpu_voxels_jax.vis import serve
 
     assert "visconfig.json" in serve.INDEX and "slice" in serve.INDEX
 
@@ -399,9 +455,9 @@ def test_per_map_write_read_disk_contract(tmp_path):
     the reference's map-type-mismatch rejection."""
     import pytest
 
-    from gpu_voxels_tpu.maps.hierarchical import HierarchicalBitMap
-    from gpu_voxels_tpu.maps.paged import PagedHierarchicalMap
-    from gpu_voxels_tpu.maps.voxellist import bit_vector_voxel_list
+    from gpu_voxels_jax.maps.hierarchical import HierarchicalBitMap
+    from gpu_voxels_jax.maps.paged import PagedHierarchicalMap
+    from gpu_voxels_jax.maps.voxellist import bit_vector_voxel_list
 
     pts = np.array([[1.5, 2.5, 3.5], [4.5, 5.5, 6.5]], np.float32)
 
@@ -458,7 +514,7 @@ def test_facade_update_map_is_thread_atomic():
 
     import numpy as np
 
-    from gpu_voxels_tpu.api import GpuVoxels, MapType
+    from gpu_voxels_jax.api import GpuVoxels, MapType
 
     GpuVoxels._instance = None
     g = GpuVoxels.get_instance()

@@ -3,12 +3,12 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from gpu_voxels_tpu import converters
-from gpu_voxels_tpu.geometry import heightmap, transforms
-from gpu_voxels_tpu.maps.distance_map import DistanceVoxelMap
-from gpu_voxels_tpu.maps.voxelmap import BitVectorVoxelMap, ProbVoxelMap
-from gpu_voxels_tpu.sensors import ReplayDepthSource, Sensor, SensorModel, SyntheticDepthSource
-from gpu_voxels_tpu.utils.tf_helper import TfHelper
+from gpu_voxels_jax import converters
+from gpu_voxels_jax.geometry import heightmap, transforms
+from gpu_voxels_jax.maps.distance_map import DistanceVoxelMap
+from gpu_voxels_jax.maps.voxelmap import BitVectorVoxelMap, ProbVoxelMap
+from gpu_voxels_jax.sensors import ReplayDepthSource, Sensor, SensorModel, SyntheticDepthSource
+from gpu_voxels_jax.utils.tf_helper import TfHelper
 
 
 def test_tf_helper_chain_lookup():
@@ -58,7 +58,7 @@ def test_streaming_depth_source_cadence():
     return None, slow consumers DROP missed frames (latest wins)."""
     import time
 
-    from gpu_voxels_tpu.sensors import StreamingDepthSource
+    from gpu_voxels_jax.sensors import StreamingDepthSource
 
     frames = [np.full((2, 2), float(i), np.float32) for i in range(100)]
     src = StreamingDepthSource(frames, hz=200.0)
@@ -85,7 +85,7 @@ def test_socket_depth_source_roundtrip():
     import threading
     import time
 
-    from gpu_voxels_tpu.sensors import SocketDepthSource
+    from gpu_voxels_jax.sensors import SocketDepthSource
 
     server = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
     server.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
@@ -126,7 +126,7 @@ def test_socket_depth_source_roundtrip():
 def test_async_vis_publisher(tmp_path):
     """AsyncVisPublisher: publish() is non-blocking and latest-wins; flush
     drains; the newest published map is what lands on disk."""
-    from gpu_voxels_tpu.vis.provider import AsyncVisPublisher
+    from gpu_voxels_jax.vis.provider import AsyncVisPublisher
 
     m1 = ProbVoxelMap.create((8, 8, 8), 1.0).insert_point_cloud(
         np.array([[1.5, 1.5, 1.5]], np.float32)
@@ -151,7 +151,7 @@ def test_async_vis_publisher_warns_when_worker_dies(tmp_path):
 
     import pytest
 
-    from gpu_voxels_tpu.vis.provider import AsyncVisPublisher
+    from gpu_voxels_jax.vis.provider import AsyncVisPublisher
 
     m = ProbVoxelMap.create((8, 8, 8), 1.0).insert_point_cloud(
         np.array([[1.5, 1.5, 1.5]], np.float32)
@@ -180,7 +180,7 @@ def test_provider_live_vis_and_async_collide(tmp_path, monkeypatch):
     """Provider(live_vis=True): visualize() is O(1) publish; collide_async
     returns a device scalar equal to collide()."""
     monkeypatch.setenv("GPU_VOXELS_VIS_DIR", str(tmp_path))
-    from gpu_voxels_tpu.providers import Provider
+    from gpu_voxels_jax.providers import Provider
 
     env = Provider("env_live", live_vis=True)
     env.init(
@@ -209,8 +209,8 @@ def test_device_compaction_matches_nonzero():
     visualization readback fetches O(occupied), never the O(N) mask."""
     import jax.numpy as jnp
 
-    from gpu_voxels_tpu.ops.compact import compact_indices, compacted_nonzero
-    from gpu_voxels_tpu.vis.extract import occupied_coords
+    from gpu_voxels_jax.ops.compact import compact_indices, compacted_nonzero
+    from gpu_voxels_jax.vis.extract import occupied_coords
 
     rng = np.random.default_rng(11)
     mask = rng.random(50_000) < 0.02
@@ -265,8 +265,8 @@ def test_heightmap_npy_loader(tmp_path):
 
 
 def test_provider_contract():
-    from gpu_voxels_tpu.providers import Provider
-    from gpu_voxels_tpu.sensors import Sensor, SyntheticDepthSource
+    from gpu_voxels_jax.providers import Provider
+    from gpu_voxels_jax.sensors import Sensor, SyntheticDepthSource
 
     sensor = Sensor(position=np.array([8.0, 8.0, 0.2], np.float32), data_width=16,
                     data_height=12, fx=10.0, fy=10.0, cx=8.0, cy=6.0)
@@ -286,9 +286,9 @@ def test_provider_collide_non_dense_maps():
     dense-map signature has it 2nd — octree tiers take min_level there and
     lists take offset, so a positional 1.0 probed the wrong pyramid level /
     shifted every coordinate (round-4 advisor, providers.py)."""
-    from gpu_voxels_tpu.maps.hierarchical import HierarchicalBitMap
-    from gpu_voxels_tpu.maps.voxellist import bit_vector_voxel_list
-    from gpu_voxels_tpu.providers import Provider
+    from gpu_voxels_jax.maps.hierarchical import HierarchicalBitMap
+    from gpu_voxels_jax.maps.voxellist import bit_vector_voxel_list
+    from gpu_voxels_jax.providers import Provider
 
     pts = np.array([[2.5, 2.5, 2.5], [5.5, 5.5, 5.5]], np.float32)
     env = Provider("env_nd")
@@ -314,8 +314,8 @@ def test_provider_collide_non_dense_maps():
 
 
 def test_collide_with_type_mask():
-    from gpu_voxels_tpu import bitops
-    from gpu_voxels_tpu.maps.voxellist import bit_vector_voxel_list
+    from gpu_voxels_jax import bitops
+    from gpu_voxels_jax.maps.voxellist import bit_vector_voxel_list
 
     pts = np.array([[2.5, 2.5, 2.5], [4.5, 4.5, 4.5]], np.float32)
     lst = bit_vector_voxel_list((8, 8, 8)).insert_point_cloud(pts[:1], 50)
@@ -332,7 +332,7 @@ def test_collide_with_type_mask():
 def test_counting_list_subtract_bit_list():
     """subtractFromCountingVoxelList: remove bit-list voxels (e.g. the robot)
     from a counting list before density filtering."""
-    from gpu_voxels_tpu.maps.voxellist import bit_vector_voxel_list, counting_voxel_list
+    from gpu_voxels_jax.maps.voxellist import bit_vector_voxel_list, counting_voxel_list
 
     pts = np.array([[1.5, 1.5, 1.5], [2.5, 2.5, 2.5]], np.float32)
     c = counting_voxel_list((8, 8, 8)).insert_point_cloud(pts)
@@ -344,8 +344,8 @@ def test_counting_list_subtract_bit_list():
 
 
 def test_facade_save_load(tmp_path):
-    from gpu_voxels_tpu.api import GpuVoxels
-    from gpu_voxels_tpu.constants import MapType
+    from gpu_voxels_jax.api import GpuVoxels
+    from gpu_voxels_jax.constants import MapType
 
     GpuVoxels._instance = None
     gvl = GpuVoxels.get_instance()
@@ -364,8 +364,8 @@ def test_live_viewer_publish_and_serve(tmp_path):
     import urllib.request
     from http.server import HTTPServer, SimpleHTTPRequestHandler
 
-    from gpu_voxels_tpu.vis.provider import VisProvider
-    from gpu_voxels_tpu.vis.serve import INDEX, publish_cubes
+    from gpu_voxels_jax.vis.provider import VisProvider
+    from gpu_voxels_jax.vis.serve import INDEX, publish_cubes
 
     m = ProbVoxelMap.create((8, 8, 8)).insert_point_cloud(
         np.array([[1.5, 1.5, 1.5]], np.float32)
@@ -409,8 +409,8 @@ def test_vis_extract_morton_list_past_1024():
     cubes rendered at coords mod 1024 silently draw the wrong scene."""
     import numpy as np
 
-    from gpu_voxels_tpu.maps.voxellist import VoxelList
-    from gpu_voxels_tpu.vis import extract
+    from gpu_voxels_jax.maps.voxellist import VoxelList
+    from gpu_voxels_jax.vis import extract
 
     dims = (4096, 4096, 4096)
     lst = VoxelList.create(dims, 1.0, kind="bit", capacity=8, id_mode="morton")
@@ -426,8 +426,8 @@ def test_publish_cubes_includes_types(tmp_path):
 
     import numpy as np
 
-    from gpu_voxels_tpu.maps.voxelmap import BitVectorVoxelMap
-    from gpu_voxels_tpu.vis.serve import publish_cubes
+    from gpu_voxels_jax.maps.voxelmap import BitVectorVoxelMap
+    from gpu_voxels_jax.vis.serve import publish_cubes
 
     m = BitVectorVoxelMap.create((16, 16, 16), 1.0).insert_point_cloud(
         np.array([[3.5, 3.5, 3.5]], np.float32), 20
@@ -444,9 +444,9 @@ def test_visualize_hierarchical_and_paged_maps(tmp_path):
     ground-truth array."""
     import numpy as np
 
-    from gpu_voxels_tpu.maps.hierarchical import HierarchicalBitMap, HierarchicalProbMap
-    from gpu_voxels_tpu.maps.paged import PagedHierarchicalMap
-    from gpu_voxels_tpu.vis.provider import VisProvider
+    from gpu_voxels_jax.maps.hierarchical import HierarchicalBitMap, HierarchicalProbMap
+    from gpu_voxels_jax.maps.paged import PagedHierarchicalMap
+    from gpu_voxels_jax.vis.provider import VisProvider
 
     pts = np.array([[5.5, 6.5, 7.5]], np.float32)
     maps = {
@@ -476,8 +476,8 @@ def test_hierarchical_extract_honors_threshold():
     octree PROBE contract, not the visualization contract)."""
     import numpy as np
 
-    from gpu_voxels_tpu.maps.hierarchical import HierarchicalProbMap
-    from gpu_voxels_tpu.vis.extract import occupied_coords
+    from gpu_voxels_jax.maps.hierarchical import HierarchicalProbMap
+    from gpu_voxels_jax.vis.extract import occupied_coords
 
     h = HierarchicalProbMap.create((64, 64, 64))
     h = h.insert_point_cloud(np.array([[5.5, 6.5, 7.5]], np.float32))  # +127
@@ -493,8 +493,8 @@ def test_voxellist_visualize_fingerprint_tracks_ids(tmp_path):
     change even though the payload bytes are identical."""
     import numpy as np
 
-    from gpu_voxels_tpu.maps.voxellist import VoxelList
-    from gpu_voxels_tpu.vis.provider import VisProvider
+    from gpu_voxels_jax.maps.voxellist import VoxelList
+    from gpu_voxels_jax.vis.provider import VisProvider
 
     vp = VisProvider("lst", out_dir=tmp_path)
     l1 = VoxelList.create((64, 64, 64), 1.0, kind="bit", capacity=4)
@@ -508,21 +508,25 @@ def test_voxellist_visualize_fingerprint_tracks_ids(tmp_path):
 
 
 def test_jitcache_configuration(monkeypatch, tmp_path):
-    """enable_persistent_cache honors GVTPU_JAX_CACHE (path / empty=disable)
-    and defaults to <repo>/.jax_cache; safe to call repeatedly."""
+    """enable_persistent_cache leaves a set JAX_COMPILATION_CACHE_DIR to JAX
+    (no directory set in code) and otherwise uses the fixed
+    <repo>/.jax_cache; safe to call repeatedly."""
     import jax
 
-    from gpu_voxels_tpu.utils.jitcache import enable_persistent_cache
+    from gpu_voxels_jax.utils import jitcache
 
-    monkeypatch.setenv("GVTPU_JAX_CACHE", str(tmp_path / "cache"))
-    got = enable_persistent_cache()
-    assert got == str(tmp_path / "cache")
-    assert jax.config.jax_compilation_cache_dir == got
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "cache"))
+        jax.config.update("jax_compilation_cache_dir", "sentinel")
+        assert jitcache.enable_persistent_cache() == str(tmp_path / "cache")
+        assert jax.config.jax_compilation_cache_dir == "sentinel"  # untouched
 
-    monkeypatch.setenv("GVTPU_JAX_CACHE", "")
-    assert enable_persistent_cache() is None  # explicit disable
-
-    monkeypatch.delenv("GVTPU_JAX_CACHE")
-    default = enable_persistent_cache()
-    assert default is not None and default.endswith(".jax_cache")
-    assert enable_persistent_cache() == default  # idempotent
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR")
+        default = jitcache.enable_persistent_cache()
+        assert default == str(jitcache.DEFAULT_DIR)
+        assert default.endswith(".jax_cache")
+        assert jax.config.jax_compilation_cache_dir == default
+        assert jitcache.enable_persistent_cache() == default  # idempotent
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)

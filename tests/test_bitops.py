@@ -3,8 +3,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from gpu_voxels_tpu import bitops
-from gpu_voxels_tpu.constants import BitVoxelMeaning, SV_START
+from gpu_voxels_jax import bitops
+from gpu_voxels_jax.constants import BitVoxelMeaning, SV_START
 
 
 def np_bytes_from_planes(planes):
@@ -179,7 +179,7 @@ def test_packed_full_margin_check_entire_domain():
     margin + sv_offset//8 > 24 (BitVector.h:415-471)."""
     import numpy as np
     import jax.numpy as jnp
-    from gpu_voxels_tpu import bitops
+    from gpu_voxels_jax import bitops
 
     rng = np.random.default_rng(42)
 
@@ -208,7 +208,7 @@ def test_packed_fastpath_delegates_beyond_24():
     reference's buffer truncation instead of raising."""
     import numpy as np
     import jax.numpy as jnp
-    from gpu_voxels_tpu import bitops
+    from gpu_voxels_jax import bitops
 
     rng = np.random.default_rng(7)
     v1 = rng.integers(0, 256, 32, dtype=np.uint8)
@@ -221,3 +221,34 @@ def test_packed_fastpath_delegates_beyond_24():
     any_np, _ = bitops.bit_margin_collision_check_np(v1, v2, zero, 28, 0)
     any_packed, _ = bitops.bit_margin_collision_check_packed(to_planes(v1), to_planes(v2), 28)
     assert bool(any_packed[0]) == bool(any_np)
+
+
+@pytest.mark.parametrize("margin", range(9))
+def test_collide_types_matches_byte_oracle(margin):
+    """collideWithTypes bit x bit (count, colliding-meanings OR, eBVM_COLLISION
+    marking) equals the byte-level BitVector.h:415-471 oracle per voxel."""
+    from gpu_voxels_jax.ops import collide
+
+    rng = np.random.default_rng(100 + margin)
+    n = 96
+    v1 = rng.integers(0, 256, (n, 32), dtype=np.uint8) * (rng.random((n, 1)) < 0.5)
+    v2 = rng.integers(0, 256, (n, 32), dtype=np.uint8) * (rng.random((n, 1)) < 0.5)
+    v1, v2 = v1.astype(np.uint8), v2.astype(np.uint8)
+
+    def planes(v):
+        return jnp.asarray((v.reshape(n, 8, 4).astype(np.uint32)
+                            @ (256 ** np.arange(4)).astype(np.uint32)).T)
+
+    hits, recs = [], []
+    for i in range(n):
+        h, rec = bitops.bit_margin_collision_check_np(v1[i], v2[i], np.zeros(32, np.uint8), margin, 0)
+        hits.append(bool(h))
+        recs.append(rec if h else np.zeros(32, np.uint8))
+    hits = np.asarray(hits)
+    want_meanings = np.bitwise_or.reduce(np.stack(recs), axis=0)
+    cnt, meanings, marked = collide.collide_with_types_bit_bit(planes(v1), planes(v2), margin)
+    assert int(cnt) == int(hits.sum())
+    got_bytes = np.asarray(meanings).astype("<u4").view(np.uint8)
+    np.testing.assert_array_equal(got_bytes, want_meanings)
+    want_p0 = np.asarray(planes(v1))[0] | np.where(hits, np.uint32(4), np.uint32(0))
+    np.testing.assert_array_equal(np.asarray(marked)[0], want_p0)

@@ -18,7 +18,7 @@ pair through the facade on randomized scenes:
 import numpy as np
 import pytest
 
-from gpu_voxels_tpu.api import GpuVoxels, MapType
+from gpu_voxels_jax.api import GpuVoxels, MapType
 
 DIMS = 48
 

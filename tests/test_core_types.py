@@ -2,8 +2,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from gpu_voxels_tpu import morton, probability
-from gpu_voxels_tpu.constants import (
+from gpu_voxels_jax import morton, probability
+from gpu_voxels_jax.constants import (
     MAX_PROBABILITY,
     MIN_PROBABILITY,
     UNKNOWN_PROBABILITY,

@@ -7,9 +7,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from gpu_voxels_tpu.constants import float_to_probability
-from gpu_voxels_tpu.maps.voxellist import bit_vector_voxel_list
-from gpu_voxels_tpu.maps.voxelmap import BitVectorVoxelMap, ProbVoxelMap
+from gpu_voxels_jax.constants import float_to_probability
+from gpu_voxels_jax.maps.voxellist import bit_vector_voxel_list
+from gpu_voxels_jax.maps.voxelmap import BitVectorVoxelMap, ProbVoxelMap
 
 DIMS = (21, 18, 15)
 
@@ -105,7 +105,7 @@ def _cube_hits(query_vox, occupied_vox, level, dims):
 def test_hierarchy_probe_collide_differential(seed):
     """Hierarchy (dense pyramid) collide vs list/dense with random offsets
     and min_levels, against an aligned-cube numpy oracle."""
-    from gpu_voxels_tpu.maps.hierarchical import HierarchicalBitMap
+    from gpu_voxels_jax.maps.hierarchical import HierarchicalBitMap
 
     rng = np.random.default_rng(100 + seed)
     dims = (32, 32, 32)
@@ -127,8 +127,8 @@ def test_hierarchy_probe_collide_differential(seed):
 def test_paged_collide_differential(seed):
     """Sparse paged tier vs the same oracle (content far from the origin so
     block/page boundaries are exercised), incl. counting-unknown."""
-    from gpu_voxels_tpu.maps.paged import PagedHierarchicalMap
-    from gpu_voxels_tpu.maps.voxellist import bit_vector_morton_voxel_list
+    from gpu_voxels_jax.maps.paged import PagedHierarchicalMap
+    from gpu_voxels_jax.maps.voxellist import bit_vector_morton_voxel_list
 
     rng = np.random.default_rng(200 + seed)
     base = np.array([1000, 1500, 700], np.float32)
@@ -160,7 +160,7 @@ def test_paged_prob_fusion_matches_dense_differential(seed):
     log-odds the dense ProbVoxelMap writes for the same scene: both use the
     dominant-axis ray rule with the endpoint excluded and SensorModel
     magnitudes (VoxelMapOperations.h:38-39, 199-323)."""
-    from gpu_voxels_tpu.maps.paged import PagedHierarchicalMap
+    from gpu_voxels_jax.maps.paged import PagedHierarchicalMap
 
     rng = np.random.default_rng(300 + seed)
     origin = rng.uniform(4, 28, 3).astype(np.float32)

@@ -3,10 +3,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from gpu_voxels_tpu.constants import MAX_OBSTACLE_DISTANCE
-from gpu_voxels_tpu.maps.distance_map import DistanceVoxelMap
-from gpu_voxels_tpu.maps.voxelmap import ProbVoxelMap
-from gpu_voxels_tpu.ops import edt
+from gpu_voxels_jax.constants import MAX_OBSTACLE_DISTANCE
+from gpu_voxels_jax.maps.distance_map import DistanceVoxelMap
+from gpu_voxels_jax.maps.voxelmap import ProbVoxelMap
+from gpu_voxels_jax.ops import edt
 
 DIMS = (24, 20, 16)
 
@@ -70,7 +70,7 @@ def test_cross_algorithm_differences_zero():
 
 @pytest.mark.parametrize("seed,n_obs", [(21, 5), (22, 40), (23, 200), (24, 1)])
 def test_multires_jfa_matches_oracle(seed, n_obs):
-    from gpu_voxels_tpu.ops import edt
+    from gpu_voxels_jax.ops import edt
     import jax.numpy as jnp
 
     dims = (32, 32, 32)
@@ -143,7 +143,7 @@ def test_merge_occupied_from_prob_map():
 def test_converged_jfa_exact_at_scale(n_obs):
     """Denser scenes at 64^3 where plain JFA/multires show rare errors; the
     step-1 fixpoint repair must make both exactly match brute force."""
-    from gpu_voxels_tpu.ops import edt
+    from gpu_voxels_jax.ops import edt
     import jax.numpy as jnp
 
     dims = (64, 64, 64)
@@ -168,18 +168,17 @@ def test_parallel_banding_is_exact():
     )
 
 
-def test_envelope_kernel_interpret_mode(monkeypatch):
-    """Run the actual Pallas envelope kernel (interpreted) incl. the
-    coarse-bound ring counts — the fast path's kernel logic, off-TPU."""
-    monkeypatch.setenv("GVTPU_EDT_INTERPRET", "1")
-    from gpu_voxels_tpu.ops import edt, edt_envelope
+def test_envelope_kernel_interpret_mode():
+    """Run the Triton envelope kernel in the Pallas interpreter, incl. the
+    coarse-bound ring counts — the GPU path's kernel logic, on the CPU."""
+    from gpu_voxels_jax.ops import edt, edt_envelope
 
     dims = (16, 16, 16)
     obs = np.array([[0, 0, 0], [15, 15, 15], [7, 3, 12]], np.int64)
     mask = np.zeros(16 ** 3, bool)
     mask[obs[:, 2] * 256 + obs[:, 1] * 16 + obs[:, 0]] = True
     packed = edt.init_from_obstacle_mask(jnp.asarray(mask), dims)
-    out = edt_envelope.parallel_banding(packed, dims)
+    out = edt_envelope.parallel_banding(packed, dims, interpret=True)
     got = np.asarray(edt.squared_distance_grid(out, dims))
     np.testing.assert_array_equal(got, np_exact_sqdist(obs, dims))
 
@@ -187,7 +186,7 @@ def test_envelope_kernel_interpret_mode(monkeypatch):
 def test_jump_flood_with_stats_telemetry():
     obs = random_scene(5)
     m = insert_obstacles(DistanceVoxelMap.create(DIMS), obs)
-    from gpu_voxels_tpu.ops import edt
+    from gpu_voxels_jax.ops import edt
 
     out, iters = edt.jump_flood_with_stats(m.data, DIMS)
     assert int(iters) < 64  # converged under the cap
@@ -200,8 +199,8 @@ def test_distance_map_contract_methods():
     """fill_pba_uninit / insertRobotConfiguration / clearBitVoxelMeaning /
     printVoxelMapData on the distance map (the reference stubs the first two
     as unsupported; clearBitVoxelMeaning is a NOP-with-TODO there)."""
-    from gpu_voxels_tpu.geometry.pointcloud import MetaPointCloud
-    from gpu_voxels_tpu.maps.distance_map import DistanceVoxelMap
+    from gpu_voxels_jax.geometry.pointcloud import MetaPointCloud
+    from gpu_voxels_jax.maps.distance_map import DistanceVoxelMap
 
     link = np.array([[1.5, 1.5, 1.5]], np.float32)
     m = DistanceVoxelMap.create((8, 8, 8))
@@ -220,3 +219,32 @@ def test_distance_map_contract_methods():
     assert len(out.splitlines()) == 3 and "(1,1,1)" in out and "(3,3,3)" in out
     wiped = m2.clear_voxel_meaning(1).fill_pba_uninit()
     assert not bool(jnp.any(wiped.obstacle_mask()))
+
+
+@pytest.mark.parametrize(
+    "shape,bounded",
+    [((2, 40, 24), False), ((2, 40, 24), True), ((3, 20, 36), True), ((1, 64, 8), False)],
+)
+def test_envelope_pass_kernel_matches_reference(shape, bounded):
+    """The Triton envelope kernel (interpreted) equals the full-scan XLA
+    pass: non-power-of-two dims, y/x padding, bounded and full ring scans."""
+    from gpu_voxels_jax.ops import edt_envelope as ee
+
+    rng = np.random.default_rng(sum(shape))
+    g = rng.integers(0, 400, shape).astype(np.int32)
+    g = np.where(rng.random(shape) < 0.2, g, ee.MISS).astype(np.int32)
+    pay = rng.integers(0, 1 << 30, shape).astype(np.uint32)
+    ref_d, ref_p = ee._envelope_xla(jnp.asarray(g), jnp.asarray(pay))
+    bound = None
+    if bounded:
+        # a valid output bound: the reference's per-coarse-cell max output
+        c = 8
+        d = np.asarray(ref_d)
+        d = np.where(d >= ee.MISS, -1, d)
+        pads = [(0, -n % c) for n in shape]
+        d = np.pad(d, pads, constant_values=-1)
+        z, y, x = d.shape
+        bound = jnp.asarray(d.reshape(z // c, c, y // c, c, x // c, c).max(axis=(1, 3, 5)))
+    got_d, got_p = ee.envelope_pass(jnp.asarray(g), jnp.asarray(pay), bound, interpret=True)
+    np.testing.assert_array_equal(np.asarray(got_d), np.asarray(ref_d))
+    np.testing.assert_array_equal(np.asarray(got_p), np.asarray(ref_p))

@@ -8,11 +8,11 @@ EXAMPLES = Path(__file__).resolve().parent.parent / "examples"
 sys.path.insert(0, str(EXAMPLES))
 
 
-def _run(name):
+def _run(name, **kwargs):
     import importlib
 
     mod = importlib.import_module(name)
-    return mod.main()
+    return mod.main(**kwargs)
 
 
 def test_collisions():
@@ -25,8 +25,8 @@ def test_swept_volume_vs_environment():
 
 def test_robot_vs_environment():
     # the fused live loop (one compiled program per frame) processes every
-    # cadenced frame; the 30 Hz TPU contract lives in tests_tpu
-    out = _run("robot_vs_environment")
+    # cadenced frame; the full-size loop runs in the GPU tier (tests_gpu)
+    out = _run("robot_vs_environment", full_size=False)
     assert out["processed"] >= 5
     assert len(out["counts"]) >= 1
 

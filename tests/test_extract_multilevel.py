@@ -10,10 +10,10 @@ mapping (NTree.hpp:336-352).
 import numpy as np
 import pytest
 
-from gpu_voxels_tpu.constants import BitVoxelMeaning
-from gpu_voxels_tpu.maps.hierarchical import HierarchicalBitMap, HierarchicalProbMap
-from gpu_voxels_tpu.maps.paged import PagedHierarchicalMap
-from gpu_voxels_tpu.vis.extract import (
+from gpu_voxels_jax.constants import BitVoxelMeaning
+from gpu_voxels_jax.maps.hierarchical import HierarchicalBitMap, HierarchicalProbMap
+from gpu_voxels_jax.maps.paged import PagedHierarchicalMap
+from gpu_voxels_jax.vis.extract import (
     _status_types,
     extract_distance_slice,
     extract_multilevel_cubes,
@@ -131,8 +131,8 @@ def test_provider_publishes_distance_gradient(tmp_path):
     (the reference viewer's DistanceVoxel coloring, Visualizer.cu)."""
     import json
 
-    from gpu_voxels_tpu.maps.distance_map import DistanceVoxelMap
-    from gpu_voxels_tpu.vis.provider import VisProvider
+    from gpu_voxels_jax.maps.distance_map import DistanceVoxelMap
+    from gpu_voxels_jax.vis.provider import VisProvider
 
     m = DistanceVoxelMap.create((16, 16, 16), side_length=1.0)
     m = m.insert_point_cloud(np.array([[8.5, 8.5, 8.5]], np.float32))
@@ -154,7 +154,7 @@ def test_provider_publishes_distance_gradient(tmp_path):
 
 
 def test_distance_slice_extraction():
-    from gpu_voxels_tpu.maps.distance_map import DistanceVoxelMap
+    from gpu_voxels_jax.maps.distance_map import DistanceVoxelMap
 
     m = DistanceVoxelMap.create((8, 8, 8), side_length=2.0)
     m = m.insert_point_cloud(np.array([[3.0, 3.0, 9.0]], np.float32))  # voxel (1,1,4)

@@ -1,4 +1,4 @@
-"""Multi-robot swept-volume fitter (gpu_voxels_tpu.robot.fitter).
+"""Multi-robot swept-volume fitter (gpu_voxels_jax.robot.fitter).
 
 Reference: examples/swept_fitter/Fitter.cpp:71-116 (ordering recursion) —
 the per-slot start-delay windows are this framework's time-in-bits
@@ -7,9 +7,9 @@ extension (BitVector.h:361-402 shift + SVCollider-style margin windows).
 import numpy as np
 import pytest
 
-from gpu_voxels_tpu.constants import BitVoxelMeaning
-from gpu_voxels_tpu.maps.voxelmap import BitVectorVoxelMap
-from gpu_voxels_tpu.robot.fitter import (
+from gpu_voxels_jax.constants import BitVoxelMeaning
+from gpu_voxels_jax.maps.voxelmap import BitVectorVoxelMap
+from gpu_voxels_jax.robot.fitter import (
     MAX_SV_SHIFT,
     deconflict_slot,
     fit_orderings,

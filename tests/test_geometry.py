@@ -4,8 +4,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from gpu_voxels_tpu.geometry import files, generation, transforms
-from gpu_voxels_tpu.geometry.pointcloud import MetaPointCloud, PointCloud
+from gpu_voxels_jax.geometry import files, generation, transforms
+from gpu_voxels_jax.geometry.pointcloud import MetaPointCloud, PointCloud
 
 
 def test_box_of_points_matches_reference_counts():

@@ -14,14 +14,14 @@ HierarchicalProbMap, checked after every op against a host cell-model:
 import numpy as np
 import pytest
 
-from gpu_voxels_tpu.constants import (
+from gpu_voxels_jax.constants import (
     MAX_PROBABILITY,
     MIN_PROBABILITY,
     UNKNOWN_PROBABILITY,
     BitVoxelMeaning,
 )
-from gpu_voxels_tpu.maps.hierarchical import HierarchicalProbMap
-from gpu_voxels_tpu.maps.voxellist import bit_vector_voxel_list
+from gpu_voxels_jax.maps.hierarchical import HierarchicalProbMap
+from gpu_voxels_jax.maps.voxellist import bit_vector_voxel_list
 
 DIM = 64
 THRESHOLD_OCCUPANCY = 10  # DataTypes.h:78

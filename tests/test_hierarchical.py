@@ -2,16 +2,16 @@
 import numpy as np
 import jax.numpy as jnp
 
-from gpu_voxels_tpu.constants import THRESHOLD_OCCUPANCY, UNKNOWN_PROBABILITY
-from gpu_voxels_tpu.maps.hierarchical import (
+from gpu_voxels_jax.constants import THRESHOLD_OCCUPANCY, UNKNOWN_PROBABILITY
+from gpu_voxels_jax.maps.hierarchical import (
     NS_FREE,
     NS_OCCUPIED,
     NS_UNKNOWN,
     HierarchicalBitMap,
     HierarchicalProbMap,
 )
-from gpu_voxels_tpu.maps.voxellist import bit_vector_voxel_list
-from gpu_voxels_tpu.maps.voxelmap import ProbVoxelMap
+from gpu_voxels_jax.maps.voxellist import bit_vector_voxel_list
+from gpu_voxels_jax.maps.voxelmap import ProbVoxelMap
 
 DIMS = (32, 32, 32)
 
@@ -92,7 +92,7 @@ def test_non_pow2_dims_are_padded():
 def test_collide_with_bit_map_uses_iszero():
     """GvlNTree probes bit maps with !isZero, not noneButEmpty
     (kernel_common.h:172-183): a FREE-only bit voxel still counts."""
-    from gpu_voxels_tpu.maps.voxelmap import BitVectorVoxelMap
+    from gpu_voxels_jax.maps.voxelmap import BitVectorVoxelMap
 
     pts = np.array([[4.5, 4.5, 4.5]], np.float32)
     h = HierarchicalProbMap.create(DIMS).insert_point_cloud(pts)
@@ -124,7 +124,7 @@ def test_hierarchical_x_hierarchical_collide():
 
 
 def test_hierarchical_projective_sensor():
-    from gpu_voxels_tpu.sensors import Sensor
+    from gpu_voxels_jax.sensors import Sensor
 
     sensor = Sensor(
         position=np.array([0.5, 16.0, 16.0], np.float32),
@@ -168,7 +168,7 @@ def test_deterministic_hard_statuses_diverge_from_probabilistic():
 def test_deterministic_static_dynamic_flags_propagate():
     """ns_STATIC_MAP/ns_DYNAMIC_MAP tags (Nodes.h:50-57) OR up the pyramid
     (getNewStatus, Nodes.h:78) and ride along with probed statuses."""
-    from gpu_voxels_tpu.maps.hierarchical import NS_DYNAMIC_MAP, NS_STATIC_MAP
+    from gpu_voxels_jax.maps.hierarchical import NS_DYNAMIC_MAP, NS_STATIC_MAP
 
     env = np.array([[4.5, 4.5, 4.5]], np.float32)
     sensor_pt = np.array([[20.5, 20.5, 20.5]], np.float32)
@@ -200,8 +200,8 @@ def test_collide_with_morton_list_past_1024():
     """Morton lists carry 60-bit (hi,lo) ids: hierarchical collide must
     decode the high word, not alias coords mod 1024 (octree/Morton.h:80-160).
     Regression: _query_coords_of dropped ids_hi."""
-    from gpu_voxels_tpu.maps.hierarchical import HierarchicalProbMap
-    from gpu_voxels_tpu.maps.voxellist import VoxelList
+    from gpu_voxels_jax.maps.hierarchical import HierarchicalProbMap
+    from gpu_voxels_jax.maps.voxellist import VoxelList
 
     dims = (2048, 64, 64)
     h = HierarchicalProbMap.create(dims)
@@ -220,9 +220,9 @@ def test_bitmap_tier_save_load_and_camelcase(tmp_path):
     dispatch and the reference-spelled aliases after losing its
     HierarchicalProbMap parentage. Regression: isinstance dispatch and
     compat.install() both missed it."""
-    from gpu_voxels_tpu.api import GpuVoxels
-    from gpu_voxels_tpu.constants import MapType
-    from gpu_voxels_tpu.maps.hierarchical import HierarchicalBitMap
+    from gpu_voxels_jax.api import GpuVoxels
+    from gpu_voxels_jax.constants import MapType
+    from gpu_voxels_jax.maps.hierarchical import HierarchicalBitMap
 
     GpuVoxels._instance = None
     gvl = GpuVoxels.get_instance()
@@ -295,7 +295,7 @@ def test_octree_adapter_contract_methods():
     degrades per-subcloud meanings to the first one (GvlNTree.hpp:437-453),
     clearBitVoxelMeaning only honors eBVM_OCCUPIED (GvlNTree.hpp:487-494),
     insertRobotConfiguration reports self-collisions."""
-    from gpu_voxels_tpu.geometry.pointcloud import MetaPointCloud
+    from gpu_voxels_jax.geometry.pointcloud import MetaPointCloud
 
     link = np.array([[2.5, 2.5, 2.5]], np.float32)
     meta = MetaPointCloud.from_clouds([link, link + 2.0])

@@ -2,7 +2,7 @@
 import numpy as np
 import pytest
 
-from gpu_voxels_tpu.utils import native
+from gpu_voxels_jax.utils import native
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -51,7 +51,7 @@ def test_binvox_rle_points_matches_dense_decode():
 
 
 def test_load_point_clouds_batch(tmp_path):
-    from gpu_voxels_tpu.geometry import files
+    from gpu_voxels_jax.geometry import files
 
     rng = np.random.default_rng(1)
     paths = []
@@ -70,7 +70,7 @@ def test_load_point_clouds_batch(tmp_path):
 
 
 def test_file_reader_uses_native_path(tmp_path):
-    from gpu_voxels_tpu.geometry import files
+    from gpu_voxels_jax.geometry import files
 
     pts = np.random.default_rng(0).normal(size=(100, 3)).astype(np.float32)
     f = tmp_path / "c.xyz"
@@ -105,8 +105,8 @@ def test_bit_planes_stream_roundtrip_and_byte_identity(tmp_path):
 def test_voxel_map_disk_native_matches_numpy(tmp_path, monkeypatch):
     """write_map through the native streamer emits byte-identical files to
     the pure-numpy fallback, and read_map loads either file identically."""
-    from gpu_voxels_tpu.maps.voxelmap import BitVectorVoxelMap
-    from gpu_voxels_tpu.utils import io as gio
+    from gpu_voxels_jax.maps.voxelmap import BitVectorVoxelMap
+    from gpu_voxels_jax.utils import io as gio
 
     m = BitVectorVoxelMap.create((8, 8, 8), 1.0)
     pts = np.array([[1.5, 2.5, 3.5], [4.5, 5.5, 6.5]], np.float32)

@@ -3,9 +3,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from gpu_voxels_tpu.maps.hierarchical import NS_DYNAMIC_MAP, NS_STATIC_MAP
-from gpu_voxels_tpu.maps.paged import PagedHierarchicalMap
-from gpu_voxels_tpu.maps.voxellist import bit_vector_morton_voxel_list
+from gpu_voxels_jax.maps.hierarchical import NS_DYNAMIC_MAP, NS_STATIC_MAP
+from gpu_voxels_jax.maps.paged import PagedHierarchicalMap
+from gpu_voxels_jax.maps.voxellist import bit_vector_morton_voxel_list
 
 DIMS = (4096, 4096, 4096)
 
@@ -36,7 +36,7 @@ def test_allocation_fetches_o_new_tiles_not_o_points(monkeypatch):
     fresh territory fetches the new-tile count + the compacted new-block
     prefix — O(new tiles) — never the full O(points) coords array; a
     steady-state insert (all tiles allocated) fetches ONE scalar."""
-    from gpu_voxels_tpu.maps import paged as paged_mod
+    from gpu_voxels_jax.maps import paged as paged_mod
 
     fetches = []
     real = paged_mod._host_fetch
@@ -137,8 +137,8 @@ def test_extract_and_reinsert():
 
 
 def test_factory_routes_large_worlds_to_paged():
-    from gpu_voxels_tpu.api import GpuVoxels
-    from gpu_voxels_tpu.constants import MapType
+    from gpu_voxels_jax.api import GpuVoxels
+    from gpu_voxels_jax.constants import MapType
 
     GpuVoxels._instance = None
     gvl = GpuVoxels.get_instance()
@@ -177,10 +177,10 @@ def test_paged_snapshot_motion_validity():
     """Motion validation against a snapshot of an octree-scale world: the
     PagedSnapshot pytree rides through the jitted batch checker (the map
     itself is host-grown and not a pytree)."""
-    from gpu_voxels_tpu.geometry.pointcloud import MetaPointCloud
-    from gpu_voxels_tpu.planning import MotionValidator
-    from gpu_voxels_tpu.planning.validity import HierarchicalValidityChecker
-    from gpu_voxels_tpu.robot.dh import DHParameters, KinematicChain
+    from gpu_voxels_jax.geometry.pointcloud import MetaPointCloud
+    from gpu_voxels_jax.planning import MotionValidator
+    from gpu_voxels_jax.planning.validity import HierarchicalValidityChecker
+    from gpu_voxels_jax.robot.dh import DHParameters, KinematicChain
 
     params = [DHParameters(0, 0, 0.0, 0), DHParameters(0, 0, 0.0, 0)]
     clouds = MetaPointCloud.from_clouds(
@@ -224,9 +224,9 @@ def test_paged_checker_matches_dense_and_refreshes():
     (auto-snapshot), and refresh() re-captures after mutation."""
     from dataclasses import replace
 
-    from gpu_voxels_tpu.geometry.pointcloud import MetaPointCloud
-    from gpu_voxels_tpu.maps.hierarchical import HierarchicalBitMap
-    from gpu_voxels_tpu.planning.validity import HierarchicalValidityChecker
+    from gpu_voxels_jax.geometry.pointcloud import MetaPointCloud
+    from gpu_voxels_jax.maps.hierarchical import HierarchicalBitMap
+    from gpu_voxels_jax.planning.validity import HierarchicalValidityChecker
 
     rng = np.random.default_rng(7)
     env_pts = rng.uniform(0, 128, (4000, 3)).astype(np.float32)
@@ -306,7 +306,7 @@ def test_min_level_block_cube_keeps_unknown_beside_occupied():
     """probe_status at min_level 3-5: a cube mixing an occupied block with
     unallocated (unknown) blocks must carry NS_UNKNOWN through the OR, same
     as the dense page pyramid and the tile path."""
-    from gpu_voxels_tpu.maps.hierarchical import NS_OCCUPIED, NS_UNKNOWN
+    from gpu_voxels_jax.maps.hierarchical import NS_OCCUPIED, NS_UNKNOWN
 
     m = PagedHierarchicalMap(DIMS, 1.0)
     m.insert_point_cloud(np.array([[100.5, 100.5, 100.5]], np.float32))
@@ -318,7 +318,7 @@ def test_min_level_block_cube_keeps_unknown_beside_occupied():
 def test_paged_disk_roundtrip(tmp_path):
     """write_paged_map/read_paged_map: statuses, flags, page/slot structure
     and probes survive a disk roundtrip; facade save/load dispatches it."""
-    from gpu_voxels_tpu.utils import io as map_io
+    from gpu_voxels_jax.utils import io as map_io
 
     m = PagedHierarchicalMap((32768, 32768, 32768), 0.5)
     pts = np.array(
@@ -348,7 +348,7 @@ def test_paged_disk_roundtrip(tmp_path):
 def test_paged_ascii_roundtrip(tmp_path):
     """NTree::serialize ascii mode (NTree.hpp:3283-3400) on the sparse tier:
     both instantiations roundtrip pool contents and probe results."""
-    from gpu_voxels_tpu.utils import io as map_io
+    from gpu_voxels_jax.utils import io as map_io
 
     pts = np.array([[3000.25, 17.75, 1222.25], [5.25, 1500.25, 1234.75]], np.float32)
     for prob in (False, True):
@@ -356,7 +356,7 @@ def test_paged_ascii_roundtrip(tmp_path):
         m.insert_point_cloud(pts)
         path = tmp_path / "paged.txt"
         map_io.write_paged_map(m, path, ascii=True)
-        assert path.read_bytes().startswith(b"GPU_VOXELS_TPU_OCTREE ascii")
+        assert path.read_bytes().startswith(b"GPU_VOXELS_JAX_OCTREE ascii")
         m2 = map_io.read_hierarchical_map(path)
         assert isinstance(m2, PagedHierarchicalMap) and m2.probabilistic == prob
         assert m2.dims == m.dims and m2.side_length == m.side_length
@@ -378,7 +378,7 @@ def test_paged_ascii_roundtrip(tmp_path):
 def test_probabilistic_paged_octree_scale():
     """GvlNTreeProb at full NTree scale (Octree.cu:71): log-odds inserts and
     the EnvNodesProbCommon.h:30-45 occupancy contract at 32768^3, sparse."""
-    from gpu_voxels_tpu.constants import MapType
+    from gpu_voxels_jax.constants import MapType
 
     m = PagedHierarchicalMap((32768, 32768, 32768), 1.0, probabilistic=True)
     assert m.map_type == MapType.MT_PROBAB_OCTREE
@@ -427,7 +427,7 @@ def test_probabilistic_paged_sensor_fusion_contract():
 def test_probabilistic_paged_nonpow2_and_depth_image():
     """Sentinel rays are dead in the probabilistic tier too; the depth-image
     entry point (octree Sensor pipeline) fuses hits + carving."""
-    from gpu_voxels_tpu.sensors import Sensor
+    from gpu_voxels_jax.sensors import Sensor
 
     m = PagedHierarchicalMap(DIMS, 1.0, probabilistic=True)
     origin = (100.5, 100.5, 100.5)
@@ -460,8 +460,8 @@ def test_probabilistic_paged_nonpow2_and_depth_image():
 
 
 def test_factory_routes_large_prob_octree_to_paged():
-    from gpu_voxels_tpu.api import GpuVoxels
-    from gpu_voxels_tpu.constants import MapType
+    from gpu_voxels_jax.api import GpuVoxels
+    from gpu_voxels_jax.constants import MapType
 
     GpuVoxels._instance = None
     gvl = GpuVoxels.get_instance()
@@ -472,7 +472,7 @@ def test_factory_routes_large_prob_octree_to_paged():
 
 
 def test_paged_prob_disk_roundtrip(tmp_path):
-    from gpu_voxels_tpu.utils import io as map_io
+    from gpu_voxels_jax.utils import io as map_io
 
     m = PagedHierarchicalMap((32768, 32768, 32768), 0.5, probabilistic=True)
     pts = np.array([[3000.25, 17.75, 12222.25], [5.25, 15000.25, 1234.75]], np.float32)
@@ -521,7 +521,7 @@ def test_paged_x_dense_map_collide_with_offset():
     """intersect_load_balance(ProbVoxelMap&) analogue (NTree.hpp:1006):
     exact counts vs the set oracle, prob and bit maps, zero and nonzero
     offsets."""
-    from gpu_voxels_tpu.maps.voxelmap import BitVectorVoxelMap, ProbVoxelMap
+    from gpu_voxels_jax.maps.voxelmap import BitVectorVoxelMap, ProbVoxelMap
 
     rng = np.random.default_rng(11)
     paged_pts = rng.uniform(0, 250, (400, 3)).astype(np.float32)
@@ -543,7 +543,7 @@ def test_paged_x_dense_map_resolution_probe():
     """collideWithResolution vs a dense map at min_level > 0 runs the literal
     per-map-voxel probe: count = map-occupied voxels whose coarse octree
     probe hits."""
-    from gpu_voxels_tpu.maps.voxelmap import ProbVoxelMap
+    from gpu_voxels_jax.maps.voxelmap import ProbVoxelMap
 
     m = PagedHierarchicalMap(DIMS, 1.0)
     m.insert_point_cloud(np.array([[100.5, 100.5, 100.5]], np.float32))
@@ -573,7 +573,7 @@ def test_paged_x_paged_collide():
 
 def test_paged_x_dense_hierarchy_collide_both_directions():
     """Paged octree x dense pyramid tier, dispatched from either side."""
-    from gpu_voxels_tpu.maps.hierarchical import HierarchicalBitMap
+    from gpu_voxels_jax.maps.hierarchical import HierarchicalBitMap
 
     rng = np.random.default_rng(13)
     pa = rng.uniform(0, 200, (150, 3)).astype(np.float32)
@@ -632,7 +632,7 @@ def test_paged_build_free_bounding_box_and_check_tree():
 
 def test_paged_adapter_contract_methods():
     """Same GpuVoxelsMap contract on the sparse paged tier."""
-    from gpu_voxels_tpu.geometry.pointcloud import MetaPointCloud
+    from gpu_voxels_jax.geometry.pointcloud import MetaPointCloud
 
     link = (np.array([[100, 100, 100]], np.float32) + 0.5)
     meta = MetaPointCloud.from_clouds([link, link + 8.0])

@@ -23,7 +23,7 @@ interleavings.
 import numpy as np
 import pytest
 
-from gpu_voxels_tpu.constants import (
+from gpu_voxels_jax.constants import (
     MAX_PROBABILITY,
     MIN_PROBABILITY,
     SENSOR_MODEL_FREE,
@@ -31,8 +31,8 @@ from gpu_voxels_tpu.constants import (
     UNKNOWN_PROBABILITY,
     BitVoxelMeaning,
 )
-from gpu_voxels_tpu.maps import paged as paged_mod
-from gpu_voxels_tpu.maps.paged import PagedHierarchicalMap
+from gpu_voxels_jax.maps import paged as paged_mod
+from gpu_voxels_jax.maps.paged import PagedHierarchicalMap
 
 DIM = 128
 THRESHOLD_OCCUPANCY = 10  # DataTypes.h:78

@@ -10,9 +10,9 @@ import jax
 import numpy as np
 import pytest
 
-from gpu_voxels_tpu.constants import BitVoxelMeaning
-from gpu_voxels_tpu.maps.paged import PagedHierarchicalMap
-from gpu_voxels_tpu.parallel import ShardedPagedWorld
+from gpu_voxels_jax.constants import BitVoxelMeaning
+from gpu_voxels_jax.maps.paged import PagedHierarchicalMap
+from gpu_voxels_jax.parallel import ShardedPagedWorld
 
 DIMS = (64, 64, 512)  # 8 slabs of 64 -> one page of depth per device
 
@@ -125,8 +125,8 @@ def test_probabilistic_world_occupancy():
 
 
 def test_collide_directions_match_single_device():
-    from gpu_voxels_tpu.maps.voxellist import VoxelList
-    from gpu_voxels_tpu.maps.voxelmap import ProbVoxelMap
+    from gpu_voxels_jax.maps.voxellist import VoxelList
+    from gpu_voxels_jax.maps.voxelmap import ProbVoxelMap
 
     devs = _devices()
     pts = _scene(seed=17)
@@ -178,7 +178,7 @@ def test_min_level_probes_and_guard():
 
 
 def test_depth_image_matches_single_device():
-    from gpu_voxels_tpu.sensors import Sensor
+    from gpu_voxels_jax.sensors import Sensor
 
     devs = _devices()
     cam = Sensor(
@@ -234,7 +234,7 @@ def test_to_from_paged_map_and_disk_round_trip(tmp_path):
     p_world = tmp_path / "w.bin"
     assert world.write_to_disk(p_world)
     # the world's file reads back through the ordinary single-map path
-    from gpu_voxels_tpu.utils import io as map_io
+    from gpu_voxels_jax.utils import io as map_io
 
     as_single = map_io.read_map(p_world)
     assert isinstance(as_single, PagedHierarchicalMap)
@@ -269,7 +269,7 @@ def test_facade_mesh_routes_paged_tier_to_world(tmp_path):
     (save = single-device format bytes; load stays distributed)."""
     from jax.sharding import Mesh
 
-    from gpu_voxels_tpu.api import GpuVoxels, MapType
+    from gpu_voxels_jax.api import GpuVoxels, MapType
 
     devs = _devices()
     mesh = Mesh(np.asarray(devs), ("z",))
@@ -306,7 +306,7 @@ def test_facade_mesh_routes_paged_tier_to_world(tmp_path):
 
 
 def test_multilevel_extraction_on_world():
-    from gpu_voxels_tpu.vis.extract import extract_multilevel_cubes
+    from gpu_voxels_jax.vis.extract import extract_multilevel_cubes
 
     devs = _devices()
     pts = _scene(seed=59)
@@ -321,7 +321,7 @@ def test_multilevel_extraction_on_world():
     # UNKNOWN differs by construction: the single map emits coarse UNKNOWN
     # cubes spanning the whole grid, the world per-slab ones. Occupied/free
     # cubes never cross slab boundaries, so those sets must match exactly.
-    from gpu_voxels_tpu.constants import BitVoxelMeaning as BVM
+    from gpu_voxels_jax.constants import BitVoxelMeaning as BVM
 
     unk = int(BVM.eBVM_UNKNOWN)
     assert {x for x in want if x[2] != unk} == {x for x in got if x[2] != unk}
@@ -332,7 +332,7 @@ def test_build_meta_robot_and_clear_meaning():
     insertMetaPointCloud (first-meaning degrade), insertRobotConfiguration
     (self-collision check) and clearBitVoxelMeaning — all equal to the
     single-device map."""
-    from gpu_voxels_tpu.geometry.pointcloud import MetaPointCloud
+    from gpu_voxels_jax.geometry.pointcloud import MetaPointCloud
 
     devs = _devices()
     rng = np.random.default_rng(61)

@@ -3,9 +3,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from gpu_voxels_tpu.geometry import generation
-from gpu_voxels_tpu.maps.voxelmap import ProbVoxelMap
-from gpu_voxels_tpu.parallel import build_sharded_cycle, make_grid_mesh, sharded_collide_count
+from gpu_voxels_jax.geometry import generation
+from gpu_voxels_jax.maps.voxelmap import ProbVoxelMap
+from gpu_voxels_jax.parallel import build_sharded_cycle, make_grid_mesh, sharded_collide_count
 
 
 def test_sharded_cycle_matches_single_device():
@@ -50,8 +50,8 @@ def test_sharded_collide_presharded():
 
 def test_sharded_edt_matches_single_device():
     import jax.numpy as jnp
-    from gpu_voxels_tpu.ops import edt
-    from gpu_voxels_tpu.parallel.sharded_edt import build_sharded_edt
+    from gpu_voxels_jax.ops import edt
+    from gpu_voxels_jax.parallel.sharded_edt import build_sharded_edt
 
     dims = (32, 32, 64)  # z sharded over 8 -> slabs of 8
     n = dims[0] * dims[1] * dims[2]
@@ -71,9 +71,9 @@ def test_sharded_edt_matches_single_device():
 
 def test_sharded_sensor_cycle_matches_single_device():
     import jax.numpy as jnp
-    from gpu_voxels_tpu.maps.voxelmap import ProbVoxelMap
-    from gpu_voxels_tpu.ops import raycast
-    from gpu_voxels_tpu.parallel.sharded import build_sharded_sensor_cycle
+    from gpu_voxels_jax.maps.voxelmap import ProbVoxelMap
+    from gpu_voxels_jax.ops import raycast
+    from gpu_voxels_jax.parallel.sharded import build_sharded_sensor_cycle
 
     dims = (32, 32, 32)
     rng = np.random.default_rng(7)
@@ -91,7 +91,7 @@ def test_sharded_sensor_cycle_matches_single_device():
         sensor_map.data, jnp.asarray(depth), jnp.asarray(pose),
         8.0, 8.0, 8.0, 6.0, 1.0, dims,
     )
-    from gpu_voxels_tpu.constants import float_to_probability
+    from gpu_voxels_jax.constants import float_to_probability
     t = float_to_probability(0.25)
     expect = int(((np.asarray(new).astype(int) >= t) & (np.asarray(env.data).astype(int) >= t)).sum())
 
@@ -105,8 +105,8 @@ def test_sharded_sensor_cycle_matches_single_device():
 def test_sharded_bit_cycle_matches_single_device():
     """Z-slab-sharded 256-bit tier: insert + noneButEmpty collide count
     equals the single-device BitVectorVoxelMap exactly."""
-    from gpu_voxels_tpu.maps.voxelmap import BitVectorVoxelMap
-    from gpu_voxels_tpu.parallel import build_sharded_bit_cycle
+    from gpu_voxels_jax.maps.voxelmap import BitVectorVoxelMap
+    from gpu_voxels_jax.parallel import build_sharded_bit_cycle
 
     dims = (16, 16, 32)
     rng = np.random.default_rng(3)
@@ -127,8 +127,8 @@ def test_sharded_hier_probe_matches_single_device():
     import jax
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from gpu_voxels_tpu.maps.hierarchical import HierarchicalBitMap
-    from gpu_voxels_tpu.parallel import build_sharded_hier_probe
+    from gpu_voxels_jax.maps.hierarchical import HierarchicalBitMap
+    from gpu_voxels_jax.parallel import build_sharded_hier_probe
 
     dims = (16, 16, 64)
     rng = np.random.default_rng(4)
@@ -152,8 +152,8 @@ def test_sharded_paged_probe_matches_single_device():
     """Sharded paged-octree probe batch (snapshot replicated, queries
     z-sharded): occupied + unknown counts match the single-device
     collide_with_coords / counting-unknown probes exactly."""
-    from gpu_voxels_tpu.maps.paged import PagedHierarchicalMap, _count_probe_hits
-    from gpu_voxels_tpu.parallel import build_sharded_paged_probe
+    from gpu_voxels_jax.maps.paged import PagedHierarchicalMap, _count_probe_hits
+    from gpu_voxels_jax.parallel import build_sharded_paged_probe
 
     rng = np.random.default_rng(11)
     m = PagedHierarchicalMap((4096, 4096, 4096), 1.0)
@@ -179,8 +179,8 @@ def test_sharded_paged_probe_matches_single_device():
 def test_sharded_list_collide_matches_single_device():
     """Sharded list x list collide (A's id rows z-sharded, B replicated)
     equals VoxelList.collide_with for both linear and morton id modes."""
-    from gpu_voxels_tpu.maps.voxellist import VoxelList
-    from gpu_voxels_tpu.parallel import build_sharded_list_collide
+    from gpu_voxels_jax.maps.voxellist import VoxelList
+    from gpu_voxels_jax.parallel import build_sharded_list_collide
 
     rng = np.random.default_rng(12)
     dims = (64, 64, 64)
@@ -207,8 +207,8 @@ def test_sharded_exact_edt_bit_identical():
     flagship exact EDT)."""
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from gpu_voxels_tpu.ops import edt, edt_envelope
-    from gpu_voxels_tpu.parallel.sharded_edt_exact import (
+    from gpu_voxels_jax.ops import edt, edt_envelope
+    from gpu_voxels_jax.parallel.sharded_edt_exact import (
         build_sharded_parallel_banding,
     )
 
@@ -228,7 +228,7 @@ def test_sharded_exact_edt_bit_identical():
     # an empty grid (no sites anywhere) must stay uninitialised everywhere
     empty = edt.init_from_obstacle_mask(jnp.zeros(n, bool), dims)
     out = np.asarray(fn(jax.device_put(empty, NamedSharding(mesh, P("z")))))
-    from gpu_voxels_tpu.constants import PBA_UNINITIALISED_PACKED
+    from gpu_voxels_jax.constants import PBA_UNINITIALISED_PACKED
 
     assert (out == PBA_UNINITIALISED_PACKED).all()
 
@@ -241,10 +241,10 @@ def test_sharded_sensor_cycle_fractional_side_length():
     ops/raycast.projective_free_space z_index_offset), so the sharded count
     must equal the single-device one at any resolution."""
     import jax.numpy as jnp
-    from gpu_voxels_tpu.constants import float_to_probability
-    from gpu_voxels_tpu.maps.voxelmap import ProbVoxelMap
-    from gpu_voxels_tpu.ops import raycast
-    from gpu_voxels_tpu.parallel.sharded import build_sharded_sensor_cycle
+    from gpu_voxels_jax.constants import float_to_probability
+    from gpu_voxels_jax.maps.voxelmap import ProbVoxelMap
+    from gpu_voxels_jax.ops import raycast
+    from gpu_voxels_jax.parallel.sharded import build_sharded_sensor_cycle
 
     dims = (32, 32, 32)
     side = 0.05
@@ -272,3 +272,40 @@ def test_sharded_sensor_cycle_fractional_side_length():
     got = int(fn(jnp.asarray(depth), jnp.asarray(pose), env.data))
     assert got == expect
     assert got > 0
+
+
+def test_sharded_exact_edt_interpreted_kernel_on_4_devices():
+    """The z-sharded exact EDT with the Triton envelope kernel (interpreted)
+    inside shard_map on 4 virtual devices equals the single-device reference
+    pipeline bit-for-bit."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from gpu_voxels_jax.ops import edt, edt_envelope
+    from gpu_voxels_jax.parallel.sharded_edt_exact import (
+        build_sharded_parallel_banding,
+    )
+
+    mesh = make_grid_mesh(4, world=1)
+    dims = (16, 16, 32)  # dzl = 8 per slab
+    n = dims[0] * dims[1] * dims[2]
+    mask = np.zeros(n, bool)
+    mask[np.random.default_rng(3).integers(0, n, 40)] = True
+    packed = edt.init_from_obstacle_mask(jnp.asarray(mask), dims)
+    fn = build_sharded_parallel_banding(mesh, dims, bound_c=8, interpret=True)
+    sharded = np.asarray(fn(jax.device_put(packed, NamedSharding(mesh, P("z")))))
+    single = np.asarray(edt_envelope.parallel_banding(packed, dims, bound_c=8))
+    np.testing.assert_array_equal(sharded, single)
+
+
+def test_check_multichip_on_4_devices():
+    """The four-card check (sharded cycle, sharded exact EDT, first-class
+    sharded types collide, ShardedPagedWorld) at its dry-run size."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import __graft_entry__ as g
+
+    out = g.check_multichip(jax.devices()[:4], g._scaled(g.DRYRUN_SIZES, 4), log=lambda *_: None)
+    assert out["cycle"] > 0 and out["edt_diff"] == 0 and out["types"] > 0
+    assert out["paged_world"] >= 32

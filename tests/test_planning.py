@@ -10,8 +10,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gpu_voxels_tpu.maps.voxelmap import ProbVoxelMap
-from gpu_voxels_tpu.planning import (
+from gpu_voxels_jax.maps.voxelmap import ProbVoxelMap
+from gpu_voxels_jax.planning import (
     GvlValidityChecker,
     JointSpace,
     MotionValidator,

@@ -3,14 +3,14 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from gpu_voxels_tpu import bitops
-from gpu_voxels_tpu.constants import SV_START
-from gpu_voxels_tpu.geometry.pointcloud import MetaPointCloud
-from gpu_voxels_tpu.maps.voxelmap import BitVectorVoxelMap, ProbVoxelMap
-from gpu_voxels_tpu.robot.dh import DHJointType, DHParameters, KinematicChain
-from gpu_voxels_tpu.robot.robot import interpolate_linear
-from gpu_voxels_tpu.robot.swept_volume import insert_swept_volume, sv_meaning_for_step
-from gpu_voxels_tpu.robot.urdf import UrdfRobot
+from gpu_voxels_jax import bitops
+from gpu_voxels_jax.constants import SV_START
+from gpu_voxels_jax.geometry.pointcloud import MetaPointCloud
+from gpu_voxels_jax.maps.voxelmap import BitVectorVoxelMap, ProbVoxelMap
+from gpu_voxels_jax.robot.dh import DHJointType, DHParameters, KinematicChain
+from gpu_voxels_jax.robot.robot import interpolate_linear
+from gpu_voxels_jax.robot.swept_volume import insert_swept_volume, sv_meaning_for_step
+from gpu_voxels_jax.robot.urdf import UrdfRobot
 
 
 def two_link_arm():
@@ -123,7 +123,7 @@ def test_urdf_binvox_clouds_under_xyz_named_dir(tmp_path):
     f.write_text(urdf)
     robot = UrdfRobot(f)
     assert robot.clouds.names == ("hand",)
-    from gpu_voxels_tpu.geometry import files
+    from gpu_voxels_jax.geometry import files
 
     pts = np.asarray(robot.clouds.points)
     want = files.read_binvox(root / "hand.binvox")  # the correct decode
@@ -168,7 +168,7 @@ def test_self_collision_check():
 
 
 def test_batched_swept_volume_matches_loop():
-    from gpu_voxels_tpu.robot.swept_volume import insert_swept_volume_batched
+    from gpu_voxels_jax.robot.swept_volume import insert_swept_volume_batched
 
     arm = two_link_arm()
     traj = np.stack([np.array([t, 0.0], np.float32) for t in np.linspace(0, np.pi / 2, 5)])
@@ -182,7 +182,7 @@ def test_batched_swept_volume_multi_plane_and_wraparound():
     """70 steps with num_ids=40 spans bit planes 0-1 AND wraps meanings
     (step 40 reuses SV bit 4): the fused single-scatter path must match the
     per-step loop bit-for-bit and keep the occupancy summary coherent."""
-    from gpu_voxels_tpu.robot.swept_volume import insert_swept_volume_batched
+    from gpu_voxels_jax.robot.swept_volume import insert_swept_volume_batched
 
     arm = two_link_arm()
     traj = np.stack(
@@ -199,7 +199,7 @@ def test_batched_swept_volume_multi_plane_and_wraparound():
 
 
 def test_ur_presets_reach_and_sweep():
-    from gpu_voxels_tpu.robot.presets import ur_robot
+    from gpu_voxels_jax.robot.presets import ur_robot
 
     for model, reach in (("ur3", 0.5), ("ur5", 0.85), ("ur10", 1.1)):
         arm = ur_robot(model, spacing=0.04)
@@ -228,7 +228,7 @@ def test_ur_presets_reach_and_sweep():
 def test_traj_file_roundtrip(tmp_path, monkeypatch):
     """swept_fitter .traj format (Robot.cpp:45-113): header parsing, model-
     path resolution, 100-intermediate-pose linear interpolation."""
-    from gpu_voxels_tpu.robot import load_trajectories
+    from gpu_voxels_jax.robot import load_trajectories
 
     content = """Trajectory_Num: 2
 Joint_Num: 3
@@ -267,7 +267,7 @@ elbow 0 0
 
 
 def test_traj_truncated_file_raises_value_error(tmp_path, monkeypatch):
-    from gpu_voxels_tpu.robot import load_trajectories
+    from gpu_voxels_jax.robot import load_trajectories
 
     d = tmp_path / "trajectories"; d.mkdir()
     (d / "cut.traj").write_text("Trajectory_Num: 2\nJoint_Num: 3\nName: T1\nshoulder 0.0 1.0\n")

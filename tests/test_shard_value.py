@@ -11,10 +11,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gpu_voxels_tpu.constants import BitVoxelMeaning, MapType
-from gpu_voxels_tpu.maps.hierarchical import HierarchicalBitMap, HierarchicalProbMap
-from gpu_voxels_tpu.maps.voxelmap import BitVectorVoxelMap, CountingVoxelMap, ProbVoxelMap
-from gpu_voxels_tpu.parallel import assert_sharded, make_grid_mesh, shard_map_value
+from gpu_voxels_jax.constants import BitVoxelMeaning, MapType
+from gpu_voxels_jax.maps.hierarchical import HierarchicalBitMap, HierarchicalProbMap
+from gpu_voxels_jax.maps.voxelmap import BitVectorVoxelMap, CountingVoxelMap, ProbVoxelMap
+from gpu_voxels_jax.parallel import assert_sharded, make_grid_mesh, shard_map_value
 
 DIMS = (16, 16, 32)
 
@@ -107,7 +107,7 @@ def test_dimz_must_divide_mesh():
 def test_facade_mesh_opt_in():
     """add_map(..., mesh=) keeps the named map distributed through facade
     updates (insert via update_map re-pins the layout)."""
-    from gpu_voxels_tpu.api import GpuVoxels
+    from gpu_voxels_jax.api import GpuVoxels
 
     mesh = _mesh()
     GpuVoxels._instance = None

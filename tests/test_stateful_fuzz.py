@@ -17,8 +17,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from gpu_voxels_tpu import bitops
-from gpu_voxels_tpu.maps.voxelmap import BitVectorVoxelMap
+from gpu_voxels_jax import bitops
+from gpu_voxels_jax.maps.voxelmap import BitVectorVoxelMap
 
 DIM = 16
 MEANINGS = (0, 10, 11, 200)  # incl. eBVM_FREE (bit 0, masked by noneButEmpty)
@@ -59,7 +59,7 @@ def test_voxellist_stateful_fuzz_vs_set_model(seed):
     (append + make_unique, TemplateVoxelList.hpp:142-209; subtract :610-643)
     checked against an id-set model every step — count, exact id set, and
     collide_with both ways (binary_search membership, payload-independent)."""
-    from gpu_voxels_tpu.maps.voxellist import bit_vector_voxel_list
+    from gpu_voxels_jax.maps.voxellist import bit_vector_voxel_list
 
     rng = np.random.default_rng(seed)
     # capacity 4096 == DIM^3: dedup can never overflow, so grow=False keeps

@@ -3,17 +3,17 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from gpu_voxels_tpu import bitops
-from gpu_voxels_tpu.constants import BitVoxelMeaning
-from gpu_voxels_tpu.geometry import generation
-from gpu_voxels_tpu.maps.voxellist import (
+from gpu_voxels_jax import bitops
+from gpu_voxels_jax.constants import BitVoxelMeaning
+from gpu_voxels_jax.geometry import generation
+from gpu_voxels_jax.maps.voxellist import (
     EMPTY_ID,
     bit_vector_morton_voxel_list,
     bit_vector_voxel_list,
     counting_voxel_list,
     prob_voxel_list,
 )
-from gpu_voxels_tpu.maps.voxelmap import BitVectorVoxelMap, ProbVoxelMap
+from gpu_voxels_jax.maps.voxelmap import BitVectorVoxelMap, ProbVoxelMap
 
 DIMS = (32, 32, 32)
 
@@ -423,7 +423,7 @@ def test_resize_and_clear_voxel_meaning():
 def test_list_robot_configuration_and_rebuild_contract():
     """insertRobotConfiguration on lists (unsupported in the reference)
     detects overlapping sub-clouds; needsRebuild/rebuild are honest no-ops."""
-    from gpu_voxels_tpu.geometry.pointcloud import MetaPointCloud
+    from gpu_voxels_jax.geometry.pointcloud import MetaPointCloud
 
     link = np.array([[1.5, 1.5, 1.5]], np.float32)
     lst = bit_vector_voxel_list((8, 8, 8))

@@ -4,11 +4,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from gpu_voxels_tpu import bitops
-from gpu_voxels_tpu.constants import BitVoxelMeaning, SV_START
-from gpu_voxels_tpu.geometry import generation
-from gpu_voxels_tpu.maps.voxelmap import BitVectorVoxelMap, CountingVoxelMap, ProbVoxelMap
-from gpu_voxels_tpu.ops import insert as insert_ops
+from gpu_voxels_jax import bitops
+from gpu_voxels_jax.constants import BitVoxelMeaning, SV_START
+from gpu_voxels_jax.geometry import generation
+from gpu_voxels_jax.maps.voxelmap import BitVectorVoxelMap, CountingVoxelMap, ProbVoxelMap
+from gpu_voxels_jax.ops import insert as insert_ops
 
 DIMS = (89, 123, 74)  # reference test default dims
 
@@ -232,7 +232,7 @@ def test_occupancy_summary_stays_coherent():
     """The maintained occ summary (uint8[N] !noneButEmpty) must match the
     plane fold after every mutating operation, and the summary fast-path
     collide counts must equal the fold-path counts."""
-    from gpu_voxels_tpu.ops import collide as collide_ops
+    from gpu_voxels_jax.ops import collide as collide_ops
 
     dims = (16, 16, 16)
     rng = np.random.default_rng(9)
@@ -267,7 +267,7 @@ def test_occupancy_summary_stays_coherent():
         slow = int(collide_ops.count_bit_bit(m2.data, other.data, dims, off))
         assert fast == slow, off
     # bit x prob both directions: summary path == plane-fold path
-    from gpu_voxels_tpu.constants import float_to_probability
+    from gpu_voxels_jax.constants import float_to_probability
 
     pm = ProbVoxelMap.create(dims).insert_point_cloud(pts_a)
     t = float_to_probability(0.5)
@@ -297,7 +297,7 @@ def test_occupancy_summary_none_fallback():
 
 
 def test_occupancy_summary_swept_volume_batched():
-    from gpu_voxels_tpu.robot.swept_volume import insert_swept_volume_batched
+    from gpu_voxels_jax.robot.swept_volume import insert_swept_volume_batched
 
     dims = (16, 16, 16)
 
@@ -315,12 +315,10 @@ def test_occupancy_summary_swept_volume_batched():
     assert int(np.asarray(m.occ).sum()) > 0
 
 
-def test_dense_bitcheck_routes_through_types_kernel(monkeypatch):
-    """collide_with_bitcheck's Pallas route (count-only one-pass margin
-    kernel) must equal the packed XLA hit count (unique shape so the jit
-    cache cannot serve a program traced without the interpret flag)."""
-    monkeypatch.setenv("GVTPU_TYPES_INTERPRET", "1")
-    dims = (8, 8, 24)  # unique N for a fresh trace under the env flag
+def test_dense_bitcheck_routes_through_types_kernel():
+    """collide_with_bitcheck (count-only margin window) equals the packed
+    margin oracle's hit count, and the window semantics hold."""
+    dims = (8, 8, 24)
     a = BitVectorVoxelMap.create(dims).insert_point_cloud(
         np.array([[1.5, 1.5, 1.5], [3.5, 2.5, 1.5]], np.float32), SV_START + 4
     )
@@ -347,7 +345,7 @@ def test_clone_and_print_voxel_map_data(capsys):
     np.testing.assert_array_equal(np.asarray(c.data), np.asarray(m.data))
     out = m.print_voxel_map_data()
     assert "(1,2,3)" in out and len(out.splitlines()) == 2  # header + one voxel
-    import gpu_voxels_tpu.api  # noqa: F401 — installs the camelCase aliases
+    import gpu_voxels_jax.api  # noqa: F401 — installs the camelCase aliases
 
     b = BitVectorVoxelMap.create((4, 4, 4)).insert_point_cloud(
         np.array([[0.5, 1.5, 2.5]], np.float32), SV_START
@@ -360,8 +358,8 @@ def test_sensor_settings_flow_and_robot_configuration():
     with a stored sensor, insert_sensor_data takes SENSOR-frame points and
     transforms them by the stored pose. insertRobotConfiguration works here
     (the reference stubs it NOT_SUPPORTED, ProbVoxelMap.hpp:104-108)."""
-    from gpu_voxels_tpu.geometry.pointcloud import MetaPointCloud
-    from gpu_voxels_tpu.sensors import Sensor
+    from gpu_voxels_jax.geometry.pointcloud import MetaPointCloud
+    from gpu_voxels_jax.sensors import Sensor
 
     m = ProbVoxelMap.create((16, 16, 16), 1.0)
     s = Sensor(position=np.array([4.0, 4.0, 4.0], np.float32))
@@ -445,7 +443,7 @@ def test_bit_meta_insert_fused_matches_per_cloud_loop():
     """Per-subcloud-meaning meta insert (kernelInsertMetaPointCloud) through
     the fused single-scatter path must equal per-cloud inserts bit-for-bit,
     including duplicate voxels across subclouds and the occ summary."""
-    from gpu_voxels_tpu.geometry.pointcloud import MetaPointCloud
+    from gpu_voxels_jax.geometry.pointcloud import MetaPointCloud
 
     c0 = np.array([[1.5, 1.5, 1.5], [2.5, 2.5, 2.5]], np.float32)
     c1 = np.array([[1.5, 1.5, 1.5], [3.5, 3.5, 3.5]], np.float32)  # overlaps c0
@@ -468,7 +466,7 @@ def test_prob_meta_insert_fused_matches_sequential_loop():
     must equal sequential per-cloud inserts exactly — later subclouds win on
     shared voxels (the deterministic linearization of the reference's racy
     kernelInsertMetaPointCloud)."""
-    from gpu_voxels_tpu.geometry.pointcloud import MetaPointCloud
+    from gpu_voxels_jax.geometry.pointcloud import MetaPointCloud
 
     shared = np.array([[1.5, 1.5, 1.5]], np.float32)
     c0 = np.concatenate([shared, np.array([[2.5, 2.5, 2.5]], np.float32)])
